@@ -2,7 +2,7 @@
 
 Each shot mirrors a scene from the reference's committed ``images/`` gallery
 (the author's informal regression record, SURVEY.md §4) rendered by this
-framework on one TPU chip. Run: ``python examples/render_gallery.py``
+framework on one device. Run: ``python examples/render_gallery.py``
 (optionally ``--size N --spp N``).
 """
 
@@ -53,7 +53,7 @@ def main() -> int:
     # Enclosed scenes keep every path alive for all bounces (dense regime);
     # cap their spp so the gallery renders in minutes.
     spp_override = {"default_box": 1024, "box_scene": 1024,
-                    # ~4M rays/s through the streamed kernel: keep it minutes.
+                    # 247k triangles: keep it minutes.
                     "suzannes_x64_streamed": 256}
     shots = {
         "default_box": lambda: (
@@ -83,9 +83,9 @@ def main() -> int:
                            env=sun_env()),
             Camera.look_at(origin=[-3.0, -2.2, -5.0], target=[0.5, -1.0, 0.8]),
         ),
-        # 247,552 triangles (suzannes ×64): drives the tile-streamed kernel;
-        # visually identical to "suzannes" by construction — the point IS
-        # that a scene 64× past the VMEM ceiling renders the same.
+        # 247,552 triangles (suzannes ×64): visually identical to
+        # "suzannes" by construction — the point IS that a scene 64× larger
+        # renders the same.
         "suzannes_x64_streamed": lambda: (
             _tessellated(os.path.join(REF, "3Dmodels/suzannes.obj"), 3),
             default_cam,

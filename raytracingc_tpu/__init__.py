@@ -1,21 +1,23 @@
-"""raytracingc_tpu — a TPU-native differentiable Monte-Carlo path tracer in JAX.
+"""raytracingc_tpu — a differentiable Monte-Carlo path tracer in JAX.
 
-A brand-new, TPU-first framework with the same capabilities as the reference CPU
-renderer ``Atsuyo64/RayTracingC`` (a Sebastian-Lague-style path tracer written in C):
+A path tracer with the same capabilities as the reference CPU renderer
+``Atsuyo64/RayTracingC`` (a Sebastian-Lague-style path tracer written in C),
+running on an NVIDIA GPU (or the CPU):
 
 * OBJ/MTL and ``triangles.txt`` scene ingest (reference ``objloader.c``,
   ``raytracing.c:19-147``), here parsed into structure-of-arrays JAX pytrees.
 * Möller–Trumbore ray–triangle and quadratic ray–sphere intersection
-  (reference ``raytracing.c:162-240``), here a tiled Pallas TPU kernel (argmin
-  search) plus a differentiable refinement pass.
+  (reference ``raytracing.c:162-240``), here a closest-hit search (a fused
+  Pallas kernel on the GPU, an XLA scan on the CPU) plus a differentiable
+  refinement pass.
 * Lambertian/specular path-traced shading with emissive materials, Russian
   roulette, and a procedural sky/sun environment (reference
   ``raytracing.c:151-296``), here fused XLA ops under ``jax.lax.scan``.
 * Multi-sample accumulation and BMP/PNG writeback (reference ``main.c:98-100,305``).
-* Scaling over TPU meshes via ``jax.sharding`` + ``shard_map``: image/sample axes
-  sharded per chip, scene buffers replicated, radiance and scene-parameter
-  gradients ``psum``-reduced (the reference's 12-pthread row-cyclic executor,
-  ``main.c:81-105,284-303``, re-imagined for pod slices).
+* Scaling over device meshes via ``jax.sharding`` + ``shard_map``: image/sample
+  axes sharded per device, scene buffers replicated or block-sharded, radiance
+  and scene-parameter gradients ``psum``-reduced (the reference's 12-pthread
+  row-cyclic executor, ``main.c:81-105,284-303``).
 * End-to-end differentiability: gradients of pixel values w.r.t. vertex
   positions, normals, albedo, emission, and environment parameters — something
   the reference does not have at all.

@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from raytracingc_tpu.utils.pytree import pytree_node
 
 DEFAULT_ORIGIN = (-4.75, -1.5, -4.75)
 DEFAULT_LOOK_AT = (0.9, -1.2, 1.0)
@@ -29,7 +30,8 @@ def _normalize(v: jax.Array) -> jax.Array:
     return v / jnp.linalg.norm(v, axis=-1, keepdims=True)
 
 
-class Camera(struct.PyTreeNode):
+@pytree_node
+class Camera:
     """Camera pose as a pytree: differentiable origin/basis, static fov scalar."""
 
     origin: jax.Array  # [3]

@@ -23,7 +23,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="raytracingc-tpu",
-        description="TPU-native differentiable path tracer "
+        description="Differentiable Monte-Carlo path tracer in JAX "
         "(same capabilities as RayTracingC).",
     )
     p.add_argument("-i", "--input", default=None, metavar="path/to/file.obj",
@@ -53,11 +53,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0, help="RNG seed")
     p.add_argument("--triangles", default="triangles.txt",
                    help="triangles.txt path for default mode")
-    p.add_argument("--backend", choices=["auto", "xla", "pallas"], default="auto")
+    p.add_argument("--backend", choices=["auto", "xla", "triton"], default="auto",
+                   help="closest-hit search: the XLA scan or the fused GPU "
+                   "kernel; auto picks triton on a GPU and xla on the CPU")
     p.add_argument("--tessellate", type=int, default=0, metavar="LEVELS",
                    help="midpoint-subdivide the scene 4^LEVELS-fold before "
-                   "rendering (same image, more triangles — exercises the "
-                   "tile-streamed kernel past ~65k triangles)")
+                   "rendering (same image, more triangles)")
     p.add_argument("--shard", choices=["none", "pixels", "samples"], default="none",
                    help="multi-device sharding strategy")
     p.add_argument("--scene-sharding", choices=["replicated", "blocks"],
@@ -77,7 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="progressive sample-batch checkpointing (resumable)")
     p.add_argument("--batch-spp", type=int, default=64,
                    help="samples per checkpoint batch (with --checkpoint)")
-    # Multi-host bring-up (jax.distributed); all three auto-detect on Cloud TPU.
+    # Multi-host bring-up (jax.distributed).
     p.add_argument("--coordinator", default=None, help="host:port of process 0")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
@@ -94,7 +95,9 @@ def main(argv: list[str] | None = None) -> int:
     from raytracingc_tpu.render.image import tonemap_to_bytes, write_image
     from raytracingc_tpu.scene.builder import scene_from_obj, scene_from_triangles_txt
     from raytracingc_tpu.scene.types import EnvParams
+    from raytracingc_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     if args.num_processes or args.coordinator:
         from raytracingc_tpu.parallel.mesh import initialize_distributed
 

@@ -153,14 +153,12 @@ def fit_scene(
     (scene, opt_state); with ``resume=True`` an existing checkpoint restarts
     the loop from its saved step. Returns ``(fitted_scene, losses)``.
 
-    Geometry training keeps the accel's CULLING: the loss runs against a
-    per-step in-trace refresh of the accel's values on its static Morton
+    Geometry training keeps the accel: the loss runs against a per-step
+    in-trace refresh of the accel's values on its static Morton
     permutation (:func:`~raytracingc_tpu.ops.accel.refresh_accel`) — exact
-    for the current vertices at every step, so vertex training scales to
-    the same scene sizes as forward rendering instead of falling back to
-    the O(R·T) trivial-accel scan. The permutation itself only ages as a
-    *performance* property; ``accel_rebuild_every=k`` re-sorts it host-side
-    every k steps (0 = never; the refresh alone stays exact).
+    for the current vertices at every step. The permutation itself only
+    ages as a *locality* property; ``accel_rebuild_every=k`` re-sorts it
+    host-side every k steps (0 = never; the refresh alone stays exact).
     """
     height, width = int(target.shape[0]), int(target.shape[1])
     tgt = target.reshape(-1, 3)
@@ -174,10 +172,6 @@ def fit_scene(
     # with no accel at all runs the loss accel-free.
     geometry_trained = is_geometry_trained(trainable)
     accel = scene.accel
-    if accel is not None and getattr(accel, "mxu_coeffs", None) is not None:
-        # Eager-only table; refresh_accel returns None there — strip up
-        # front so scene pytree structure is stable across steps.
-        accel = accel.replace(mxu_coeffs=None)
     can_refresh = (
         geometry_trained
         and accel is not None
@@ -270,10 +264,9 @@ def fit_scene(
             # the jitted step does not retrace.
             from raytracingc_tpu.ops.accel import build_accel
 
-            new_accel = build_accel(scene.triangles, scene.n_triangles)
-            if new_accel.mxu_coeffs is not None:
-                new_accel = new_accel.replace(mxu_coeffs=None)
-            scene = scene.replace(accel=new_accel)
+            scene = scene.replace(
+                accel=build_accel(scene.triangles, scene.n_triangles)
+            )
         if log_every and i % log_every == 0:
             print(f"[fit_scene] step {i}: loss {float(loss):.6g}")
         if checkpoint_path and checkpoint_every and (i + 1) % checkpoint_every == 0:

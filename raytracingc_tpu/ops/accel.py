@@ -1,38 +1,38 @@
-"""Block-AABB acceleration structure (a TPU-shaped "BVH-lite").
+"""Block-AABB acceleration structure: Morton-sorted blocks with bounds.
 
 The reference scans every triangle for every ray (``raytracing.c:229-237``) —
-O(R·T) with no acceleration structure. A classic pointer-chasing BVH is
-hostile to the TPU's lockstep lanes, so the accelerator here is flat and
-lane-aligned instead:
+O(R·T) with no acceleration structure. The structure here is flat rather
+than a pointer-chasing BVH:
 
 * Triangles are sorted by the Morton code of their centroid (host-side, at
   scene build), clustering spatially-near triangles into contiguous runs.
-* Each aligned block of 128 triangles (one VPU lane tile) gets an AABB.
-* The Pallas kernel slab-tests a ray packet against a block's AABB (a handful
-  of scalar ops) and skips the 128 Möller–Trumbore tests when no ray in the
-  packet can hit — the wavefront analog of BVH node culling, at tile
-  granularity.
+* Each aligned block of ``BLOCK`` triangles gets an AABB.
 
-Exact-match guarantee: the kernel carries ORIGINAL triangle indices and
-breaks distance ties toward the lowest original index, so results are
-bit-identical to the unsorted brute-force scan (and to the C scan order)
-regardless of the permutation.
+The permuted resolve (``ops.intersect.with_perm_resolve``), block sharding
+and geometry training (``refresh_accel``) read it today; a culling search
+that skips blocks whose AABB a ray misses is the next consumer. Such a
+search must carry ORIGINAL triangle indices and break distance ties toward
+the lowest original index, so its results stay bit-identical to the
+unsorted brute-force scan (and to the C scan order).
 """
 
 from __future__ import annotations
 
 import jax
 import numpy as np
-from flax import struct
 
 from raytracingc_tpu.scene.types import Triangles
+from raytracingc_tpu.utils.pytree import pytree_node
 
-BLOCK = 128  # triangles per AABB block == TPU lane width
-_AABB_BIG = 3.0e38  # "always hit" sentinel for trivial accels
+# Triangles per AABB block. Scene padding and block sharding use the same
+# multiple. Not yet measured against other sizes on the GPU.
+BLOCK = 128
+_AABB_BIG = 3.0e38  # bound of the inverted AABB of padding-only blocks
 
 
-class TriangleAccel(struct.PyTreeNode):
-    """Morton-permuted triangle soup + per-128-block AABBs.
+@pytree_node
+class TriangleAccel:
+    """Morton-permuted triangle soup + per-block AABBs.
 
     ``triangles``: permuted copy of the scene's triangle SoA (padding at the
     tail). ``orig_idx`` maps permuted slot → original triangle index (padding
@@ -45,24 +45,12 @@ class TriangleAccel(struct.PyTreeNode):
     orig_idx: jax.Array  # int32 [T]
     aabb_lo: jax.Array  # f32 [B, 3]
     aabb_hi: jax.Array  # f32 [B, 3]
-    # Optional precomputed MT coefficient table for the MXU kernel
-    # (``ops/intersect_mxu.pack_coeffs_mxu``), built EAGERLY here so its bits
-    # are fixed once per scene — computing it inside a traced render makes
-    # the coefficients (hence distances) depend on XLA fusion context, which
-    # broke the exact chunking-invariance property. None on trivial accels
-    # (traced construction); the kernel falls back to in-trace packing then.
-    mxu_coeffs: jax.Array | None = None
     # Inverse permutation: original triangle id → permuted slot (int32 [T]).
     # Lets the resolve gather run against Morton-permuted (locality-sorted)
     # tables: the search winner's ORIGINAL index maps to its permuted slot,
-    # where spatially-near winners sit in nearby rows (round-5, VERDICT r4
-    # item 3 — the 67 MB original-order resolve gather was 73 ms/frame at
-    # 990k). None on trivial accels.
+    # where spatially-near winners sit in nearby rows. None on trivial
+    # accels.
     perm_of_orig: jax.Array | None = None
-    # Eagerly packed (12, T) search plane (A, AB, AC, N rows, permuted
-    # order) — the Pallas kernels' triangle input, otherwise rebuilt from
-    # the SoA by every traced program execution. Bits fixed once per scene.
-    packed_plane: jax.Array | None = None
 
 
 def _morton3(q: np.ndarray) -> np.ndarray:
@@ -125,36 +113,18 @@ def build_accel(tris: Triangles, n_live: int) -> TriangleAccel:
         lo_blocks[blk] = vs.min(axis=0)
         hi_blocks[blk] = vs.max(axis=0)
 
-    # Eager (non-traced) MXU coefficient build: bits fixed once per scene.
-    # Only for scenes the MXU kernel will actually accept (MXU_MAX_TRIS) —
-    # past that the table is dead weight (384 B/triangle, ~95 MB at 247k
-    # tris) uploaded with every device_put of the scene.
-    from raytracingc_tpu.ops.intersect_mxu import MXU_MAX_TRIS, pack_coeffs_mxu
-
-    coeffs = (
-        pack_coeffs_mxu(permuted, jax.numpy.asarray(orig))
-        if t <= MXU_MAX_TRIS
-        else None
-    )
     # Inverse permutation (original id → permuted slot). ``perm`` is a true
     # permutation of [0, t) (padding tail rides along identity-ish), so the
     # inverse is total; padding ids are simply never queried by winners.
     inv = np.empty((t,), np.int32)
     inv[perm] = np.arange(t, dtype=np.int32)
 
-    pn = np.asarray(tris.normal)[perm]
-    plane = np.concatenate(
-        [pa.T, (pb - pa).T, (pc - pa).T, pn.T], axis=0
-    ).astype(np.float32)  # = intersect_pallas.pack_triangles, eager bits
-
     return TriangleAccel(
         triangles=permuted,
         orig_idx=jax.numpy.asarray(orig),
         aabb_lo=jax.numpy.asarray(lo_blocks),
         aabb_hi=jax.numpy.asarray(hi_blocks),
-        mxu_coeffs=coeffs,
         perm_of_orig=jax.numpy.asarray(inv),
-        packed_plane=jax.numpy.asarray(plane),
     )
 
 
@@ -162,26 +132,23 @@ def refresh_accel(
     accel: TriangleAccel, tris: Triangles, n_live: int
 ) -> TriangleAccel:
     """Recompute the accel's VALUES from current geometry, keeping its
-    static permutation — the geometry-training accel (VERDICT r4 item 2).
+    static permutation — the geometry-training accel.
 
     ``build_accel`` freezes a geometry copy; training vertices makes that
-    copy stale after the first update (the search would intersect old
-    geometry while resolve shades the new). This traced rebuild keeps the
-    host-built Morton ORDER (``orig_idx``/``perm_of_orig``, ints — the only
-    part that needs a host sort) and regenerates everything the kernels
-    read — permuted triangle SoA, per-128-block AABBs, packed (12, T)
-    search plane — from ``tris`` INSIDE the trace. The result is exact for
-    the current geometry at every step (AABBs always bound the triangles
+    copy stale after the first update (its block bounds would no longer
+    bound the moved triangles). This traced rebuild keeps the host-built
+    Morton ORDER (``orig_idx``/``perm_of_orig``, ints — the only part that
+    needs a host sort) and regenerates the values — permuted triangle SoA
+    and per-block AABBs — from ``tris`` INSIDE the trace. The result is
+    exact for the current geometry at every step (AABBs always bound the triangles
     assigned to their block); only the *culling quality* ages as vertices
     drift from the order's Morton sort, which is a performance property,
     not a correctness one. Re-sort host-side every k steps
     (``fit_scene(accel_rebuild_every=k)``) to recover it.
 
     Values are bit-identical to ``build_accel`` on the same geometry and
-    permutation (same gather rows, same min/max, same subtractions —
-    pinned by ``tests/test_train_scale.py``). ``mxu_coeffs`` stays None
-    (in-trace MXU packing is fusion-context dependent; the training paths
-    never dispatch the MXU specialist).
+    permutation (same gather rows, same min/max — pinned by
+    ``tests/test_train_scale.py``).
     """
     import jax.numpy as jnp
 
@@ -225,36 +192,11 @@ def refresh_accel(
     lo_blocks = stacked_lo.min(axis=1)
     hi_blocks = stacked_hi.max(axis=1)
 
-    # = intersect_pallas.pack_triangles(permuted), traced (each row is a
-    # single IEEE subtraction or a copy — no fusion-order ambiguity).
-    plane = jnp.concatenate(
-        [
-            permuted.a.T,
-            (permuted.b - permuted.a).T,
-            (permuted.c - permuted.a).T,
-            permuted.normal.T,
-        ],
-        axis=0,
-    ).astype(jnp.float32)
-
     return TriangleAccel(
         triangles=permuted,
         orig_idx=accel.orig_idx,
         aabb_lo=lo_blocks,
         aabb_hi=hi_blocks,
-        mxu_coeffs=None,
         perm_of_orig=accel.perm_of_orig,
-        packed_plane=plane,
     )
 
-
-def trivial_accel(tris: Triangles) -> TriangleAccel:
-    """Identity accel: no reorder, every block 'always hit' (brute force)."""
-    t = tris.a.shape[0]
-    n_blocks = max(t // BLOCK, 1)
-    return TriangleAccel(
-        triangles=tris,
-        orig_idx=jax.numpy.arange(t, dtype=jax.numpy.int32),
-        aabb_lo=jax.numpy.full((n_blocks, 3), -_AABB_BIG, jax.numpy.float32),
-        aabb_hi=jax.numpy.full((n_blocks, 3), _AABB_BIG, jax.numpy.float32),
-    )

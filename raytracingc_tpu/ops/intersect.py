@@ -7,12 +7,13 @@ Möller–Trumbore triangle tests that backface-cull against the precomputed fac
 normal (``raytracing.c:186-214``) and a simplified ray–sphere quadratic
 (``raytracing.c:162-184``).
 
-TPU-native design — the search/resolve split:
+The search/resolve split:
 
 1. **Search** finds, per ray, only *which* primitive wins (an int index and a
-   hit flag). It is integer-valued, needs no gradients, and is the tileable
-   O(rays × primitives) kernel: either the Pallas kernel in
-   ``intersect_pallas.py`` or the chunked-``lax.scan`` XLA fallback here.
+   hit flag). It is integer-valued, needs no gradients, and is the
+   O(rays × primitives) hot loop: the chunked-``lax.scan`` XLA scan here
+   (the oracle, and the CPU path) or the fused GPU kernel in
+   ``search_triton.py``. ``nearest_hit`` picks one per platform.
 2. **Resolve** gathers the winning primitive and recomputes distance, hit
    point, normal, and material *differentiably* — one MT evaluation per ray.
    Gradients of pixel values w.r.t. vertex positions/normals/materials flow
@@ -30,12 +31,14 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from raytracingc_tpu.ops.search_triton import search_triangles_triton
 from raytracingc_tpu.scene.types import EPSILON, MISS_DST, Scene, Spheres, Triangles
+from raytracingc_tpu.utils.pytree import pytree_node
 
 
-class HitRef(struct.PyTreeNode):
+@pytree_node
+class HitRef:
     """Per-ray search result: which primitive was hit (no geometry payload)."""
 
     hit: jax.Array  # bool [R]
@@ -43,7 +46,8 @@ class HitRef(struct.PyTreeNode):
     idx: jax.Array  # int32 [R] primitive index (valid only where hit)
 
 
-class Hit(struct.PyTreeNode):
+@pytree_node
+class Hit:
     """Per-ray resolved hit: differentiable geometry + material."""
 
     hit: jax.Array  # bool [R]
@@ -110,7 +114,7 @@ def ray_sphere_dst(o, d, center, radius):
 
 
 # ----------------------------------------------------------------------------
-# Search (XLA backend): chunked scan over triangles, full pass over spheres.
+# Search: the XLA scan over triangles, a full pass over spheres, dispatch.
 # ----------------------------------------------------------------------------
 
 
@@ -119,7 +123,7 @@ def _search_triangles_xla(o, d, tris: Triangles, chunk: int = 512):
     t = tris.a.shape[0]
     # Largest divisor of t that fits the requested chunk: padded counts are
     # usually multiples of 128 (the accel block) but need not divide 512 —
-    # e.g. suzannes pads to 3968 = 31×128.
+    # e.g. 3968 = 31×128.
     chunk = min(chunk, t)
     while t % chunk:
         chunk -= 1
@@ -135,10 +139,8 @@ def _search_triangles_xla(o, d, tris: Triangles, chunk: int = 512):
             o[:, None, :], d[:, None, :], a[None], b[None], c[None], n[None]
         )  # [R, chunk]
         dst = jnp.where(valid, dst, MISS_DST)
-        j = jnp.argmin(dst, axis=1)
-        # min == dst[argmin] for NaN-free data; the lane-axis
-        # take_along_axis gather it replaces serializes on TPU.
-        dmin = jnp.min(dst, axis=1)
+        j = jnp.argmin(dst, axis=1)  # first index among equal minima
+        dmin = jnp.min(dst, axis=1)  # == dst[j] for NaN-free data
         better = dmin < best_dst  # strict < keeps the earlier (lower) index
         best_dst = jnp.where(better, dmin, best_dst)
         best_idx = jnp.where(better, base + j.astype(jnp.int32), best_idx)
@@ -161,12 +163,35 @@ def _search_spheres(o, d, spheres: Spheres):
     )
     dst = jnp.where(valid, dst, MISS_DST)
     idx = jnp.argmin(dst, axis=1).astype(jnp.int32)
-    # min == dst[argmin] for NaN-free data. The take_along_axis it replaces
-    # is a LANE-axis gather that serializes on TPU: it measured 135 us per
-    # 16k-ray bounce — 48% of the whole dense-regime render (this runs every
-    # bounce of every sample in default triangles.txt + sphere mode).
-    dmin = jnp.min(dst, axis=1)
+    dmin = jnp.min(dst, axis=1)  # == dst[idx] for NaN-free data
     return dmin, jnp.where(dmin < MISS_DST, idx, -1)
+
+
+# Implementations ``nearest_hit`` accepts by name. "triton-interpret" is the
+# GPU kernel run by the Pallas interpreter: it lets CPU tests cover the
+# kernel and is never chosen by "auto".
+SEARCH_BACKENDS = ("xla", "triton", "triton-interpret")
+
+
+def resolve_backend(backend: str) -> str:
+    """Map ``"auto"`` to the search for ``jax.default_backend()``.
+
+    ``"gpu"`` gets the fused kernel (``"triton"``), ``"cpu"`` the XLA scan;
+    any other platform raises. Explicit names pass through unchanged.
+    """
+    if backend == "auto":
+        platform = jax.default_backend()
+        if platform == "gpu":
+            return "triton"
+        if platform == "cpu":
+            return "xla"
+        raise ValueError(f"no search backend for platform {platform!r}")
+    if backend not in SEARCH_BACKENDS:
+        raise ValueError(
+            f"unknown search backend {backend!r}; expected 'auto' or one of "
+            f"{SEARCH_BACKENDS}"
+        )
+    return backend
 
 
 def nearest_hit(
@@ -179,63 +204,45 @@ def nearest_hit(
 ) -> HitRef:
     """Closest-hit search over the whole scene → ``HitRef`` (indices only).
 
-    ``backend``: ``"xla"`` (chunked scan, runs anywhere), ``"pallas"`` (tiled
-    TPU kernel), or ``"auto"`` (pallas on TPU, xla otherwise).
+    ``backend``: ``"xla"`` (chunked scan, runs anywhere), ``"triton"`` (the
+    fused GPU kernel of ``search_triton.py``), ``"triton-interpret"`` (that
+    kernel in the Pallas interpreter, for tests) or ``"auto"`` (see
+    :func:`resolve_backend`). Every backend returns the same winners.
 
     ``alive``: optional bool ``[R]`` wavefront mask — lanes marked dead may
-    receive arbitrary miss results (the Pallas backend skips whole dead
-    tiles; the masked integrator never reads dead lanes' hits).
+    receive arbitrary miss results (the kernel skips all-dead ray blocks;
+    the masked integrator never reads dead lanes' hits).
     """
     o = jax.lax.stop_gradient(o)
     d = jax.lax.stop_gradient(d)
     scene_ng = jax.lax.stop_gradient(scene)
-
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
+    backend = resolve_backend(backend)
 
     axis = scene.shard_axis
-    local_indices = False  # does tri_idx number the LOCAL shard slice?
     if scene_ng.triangles.count == 0:  # sphere-only scene: no triangle pass
         tri_dst = jnp.full(o.shape[:1], MISS_DST, jnp.float32)
         tri_idx = jnp.full(o.shape[:1], -1, jnp.int32)
-    elif backend == "pallas":
-        from raytracingc_tpu.ops.intersect_pallas import search_triangles_pallas
-
-        tri_dst, tri_idx = search_triangles_pallas(
-            o, d, scene_ng.triangles, alive=alive, accel=scene_ng.accel,
-            # Block-sharded: the live count is a GLOBAL static while the
-            # local shard's live range is data-dependent, and the brute/mxu
-            # specialists index the LOCAL original-order slice — force the
-            # accel-table architecture (packet, auto-streamed past the VMEM
-            # ceiling), whose orig_idx carries GLOBAL original indices.
-            # Blocks mode targets scenes far past the specialists' regimes.
-            n_live=(scene.n_triangles or None) if axis is None else None,
-            variant=None if axis is None else "packet",
-        )
-        # With a real accel, orig_idx already carries GLOBAL indices; the
-        # trivial_accel fallback numbers the LOCAL slice (review r4:
-        # duplicated local ids silently corrupted the cross-shard merge).
-        local_indices = scene_ng.accel is None
-    else:
+    elif backend == "xla":
         tri_dst, tri_idx = _search_triangles_xla(
             o, d, scene_ng.triangles, chunk=tri_chunk
         )
-        local_indices = True  # the XLA scan indexes the local slice
+    else:
+        tri_dst, tri_idx = search_triangles_triton(
+            o, d, scene_ng.triangles, alive,
+            interpret=backend == "triton-interpret",
+        )
 
-    if axis is not None and scene_ng.triangles.count > 0 and local_indices:
-        # Globalize: shards are contiguous original-order ranges.
+    if axis is not None and scene_ng.triangles.count > 0:
+        # Block-sharded scene: each device searched its own contiguous
+        # original-order triangle shard. Globalize the local indices, then
+        # fold the per-shard winners with the (dst, original idx)
+        # lexicographic rule — min over a partition of the scan order is
+        # min over the whole order, so the merged result is bit-identical
+        # to a whole-scene search (C tie semantics included).
         lo = jax.lax.axis_index(axis).astype(jnp.int32) * jnp.int32(
             scene_ng.triangles.count
         )
         tri_idx = jnp.where(tri_dst < MISS_DST, tri_idx + lo, tri_idx)
-
-    if axis is not None and scene_ng.triangles.count > 0:
-        # SURVEY §5.8 block-sharded merge: each device searched its own
-        # triangle shard; fold the per-shard winners with the SAME
-        # (dst, original idx) lexicographic rule the kernels use internally
-        # — min over a partition of the scan order is min over the whole
-        # order, so the merged result is bit-identical to a whole-scene
-        # search (C tie semantics included).
         d_all = jax.lax.all_gather(tri_dst, axis)  # (n, R)
         i_all = jax.lax.all_gather(tri_idx, axis)
         tri_dst, tri_idx = d_all[0], i_all[0]
@@ -268,13 +275,13 @@ def nearest_hit(
 
 
 # Minimum padded triangle count at which ``auto`` switches the resolve to
-# the Morton-permuted table. Bracketed by same-day hardware A/B (round 5):
-# at 247,552 tris (17 MB table) the permuted path loses 1.5%; at 990,208
-# (67 MB) it wins 11%. The crossover sits between; 500k splits the bracket.
+# the Morton-permuted table: the permuted gather pays only once the
+# original-order table is too large for nearby winners to share cache
+# lines. Not yet measured on the GPU.
 PERM_RESOLVE_MIN_T = 500_000
 
 
-def _tri_table(tris: Triangles) -> jax.Array:
+def triangle_table(tris: Triangles) -> jax.Array:
     """(T, 17) packed resolve rows: A, B, C, N, albedo, emission, smooth."""
     return jnp.concatenate(
         [
@@ -285,13 +292,23 @@ def _tri_table(tris: Triangles) -> jax.Array:
     )
 
 
+def sphere_table(sph: Spheres) -> jax.Array:
+    """(S, 9) packed resolve rows: center, radius, albedo, emission, smooth."""
+    return jnp.concatenate(
+        [
+            sph.center, sph.radius[:, None], sph.albedo,
+            sph.emission[:, None], sph.smoothness[:, None],
+        ],
+        axis=1,
+    )
+
+
 def with_perm_resolve(scene: Scene) -> Scene:
     """Attach the Morton-permuted resolve table (locality-sorted gathers).
 
-    The resolve row-gather from the ORIGINAL-order table was 73 ms/frame at
-    990k triangles (round-4 990k profile): winners of nearby rays are
-    spatially near, hence Morton-near, hence scattered across the
-    original-order table but CONTIGUOUS in the accel's permuted order.
+    Winners of nearby rays are spatially near, hence Morton-near, hence
+    scattered across the original-order table but CONTIGUOUS in the
+    accel's permuted order.
     This builds the (T, 17) table permuted into accel order — IN TRACE,
     via a differentiable permutation gather of ``scene.triangles``, so
     values are bitwise the originals and vertex/material gradients flow
@@ -305,10 +322,8 @@ def with_perm_resolve(scene: Scene) -> Scene:
     ``perm_of_orig``, for block-sharded scenes (their resolve combines via
     masked psum over original-order shards), and — under the default
     ``auto`` — for scenes below ``PERM_RESOLVE_MIN_T``: the permuted
-    gather wins only when the table is big enough that original-order
-    rows thrash (same-day hardware A/B, round 5: +11% at 990k tris,
-    −1.5% at 247k, −10% on the 3,868-triangle tracked bench where the
-    whole table is cache-resident and the slot indirection is pure cost).
+    gather can only win when the table is big enough that original-order
+    rows thrash; below that the slot indirection is pure cost.
     ``RTC_RESOLVE=perm|orig`` forces either side for A/B.
     """
     import os
@@ -328,11 +343,38 @@ def with_perm_resolve(scene: Scene) -> Scene:
         or scene.resolve_perm is not None
     ):
         return scene
-    table = _tri_table(scene.triangles)
+    table = triangle_table(scene.triangles)
     # orig_idx maps permuted slot → original id; padding slots carry a huge
     # sentinel, clipped to the last row (gathered garbage, never selected).
     perm_rows = jnp.take(table, scene.accel.orig_idx, axis=0, mode="clip")
     return scene.replace(resolve_perm=perm_rows)
+
+
+# Tables of at most this many rows are gathered by a one-hot matmul.
+ONEHOT_MAX_ROWS = 256
+
+
+def gather_rows(table: jax.Array, idx: jax.Array) -> jax.Array:
+    """``table[idx]`` for a ``(T, C)`` table: ONE packed row-gather per
+    primitive type instead of a gather per field.
+
+    For tables of at most ``ONEHOT_MAX_ROWS`` rows the gather is a one-hot
+    matmul instead. At HIGHEST precision a product with 1.0/0.0 selectors
+    is exact, so it equals the gather bit for bit (``chip_smoke.py`` checks
+    this on the card); a lower precision (TF32 or bf16 passes) would cut
+    the gathered geometry's mantissa. Not yet timed against the gather on
+    the GPU; its traffic scales as R x T.
+    """
+    t = table.shape[0]
+    if t > ONEHOT_MAX_ROWS:
+        return jnp.take(table, idx, axis=0)
+    onehot = (
+        idx[:, None] == jnp.arange(t, dtype=jnp.int32)[None, :]
+    ).astype(jnp.float32)
+    return jax.lax.dot_general(
+        onehot, table, (((1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
+    )
 
 
 def resolve_hit(o: jax.Array, d: jax.Array, ref: HitRef, scene: Scene) -> Hit:
@@ -355,30 +397,9 @@ def resolve_hit(o: jax.Array, d: jax.Array, ref: HitRef, scene: Scene) -> Hit:
 
     tris, sph = scene.triangles, scene.spheres
 
-    # ONE packed row-gather per primitive type instead of 12 scattered
-    # gathers: TPU gathers are row-oriented, and separate small gathers
-    # measured ~4.4 ms per bounce at 64k rays (as slow as the whole search).
-    # For SMALL tables the row-gather is replaced by a one-hot matmul on
-    # the MXU: at HIGHEST precision the f32 bf16x-pass decomposition is
-    # exact for 1.0/0.0 selectors (verified bitwise on hardware across
-    # 40 orders of magnitude), and the dense resolve gather measured
-    # 61.7 us per 16k-ray bounce vs ~15 us for the matmul. Memory traffic
-    # scales as R x T, so the threshold tracks the brute-kernel regime.
-    def _rows(table, idx):
-        t = table.shape[0]
-        if t > 256:
-            return jnp.take(table, idx, axis=0)
-        onehot = (
-            idx[:, None] == jnp.arange(t, dtype=jnp.int32)[None, :]
-        ).astype(jnp.float32)
-        return jax.lax.dot_general(
-            onehot, table, (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-        )
-
     if tris.count:
         if scene.resolve_perm is not None and scene.shard_axis is None:
-            # Locality-sorted resolve (round 5): gather the winner's row
+            # Locality-sorted resolve: gather the winner's row
             # from the Morton-permuted table attached by
             # ``with_perm_resolve`` — same bits, near-sequential rows for
             # coherent rays. The (R,) slot map is a 4-byte/ray gather vs
@@ -388,10 +409,10 @@ def resolve_hit(o: jax.Array, d: jax.Array, ref: HitRef, scene: Scene) -> Hit:
             )
             tri_rows = jnp.take(scene.resolve_perm, slot, axis=0)
         elif scene.shard_axis is None:
-            tri_table = _tri_table(tris)  # (T, 17)
-            tri_rows = _rows(tri_table, tri_idx)  # (R, 17)
+            tri_table = triangle_table(tris)  # (T, 17)
+            tri_rows = gather_rows(tri_table, tri_idx)  # (R, 17)
         else:
-            # Block-sharded (SURVEY §5.8): the winning GLOBAL index lives in
+            # Block-sharded: the winning GLOBAL index lives in
             # exactly one device's original-order shard. Gather locally for
             # the lanes this shard owns, zero the rest, and psum over the
             # axis — the sum is winner_rows + zeros, so every device ends
@@ -405,7 +426,7 @@ def resolve_hit(o: jax.Array, d: jax.Array, ref: HitRef, scene: Scene) -> Hit:
             mine = tri_sel & (tri_idx >= lo) & (tri_idx < lo + tris.count)
             local_idx = jnp.where(mine, tri_idx - lo, 0)
             tri_rows = jnp.where(
-                mine[:, None], _rows(_tri_table(tris), local_idx), 0.0
+                mine[:, None], gather_rows(triangle_table(tris), local_idx), 0.0
             )
             tri_rows = jax.lax.psum(tri_rows, axis)
     else:  # sphere-only scene: no lane ever selects a triangle
@@ -432,14 +453,7 @@ def resolve_hit(o: jax.Array, d: jax.Array, ref: HitRef, scene: Scene) -> Hit:
     tri_normal = tri_rows[:, 9:12]
 
     if sph.count:
-        sph_table = jnp.concatenate(
-            [
-                sph.center, sph.radius[:, None], sph.albedo,
-                sph.emission[:, None], sph.smoothness[:, None],
-            ],
-            axis=1,
-        )  # (S, 9)
-        sph_rows = _rows(sph_table, sph_idx)  # (R, 9)
+        sph_rows = gather_rows(sphere_table(sph), sph_idx)  # (R, 9)
 
     # Sphere recompute. Slot-0 gathers on non-sphere lanes may still see a
     # radius-0 padding sphere (all-padding scene); guard the divisions so the

@@ -1,20 +1,19 @@
 """Device-mesh construction and multi-host bring-up.
 
 The reference's only "backend" is pthread fork/join in one address space
-(``main.c:285-302``). The TPU-native replacement is a named device mesh:
+(``main.c:285-302``). The replacement here is a named device mesh:
 
 * ``px`` — the image/pixel axis (the analog of the reference's row-cyclic
   thread decomposition, ``main.c:84``). Sharding rays over ``px`` needs no
   communication during tracing; only the final image assembly (and, when
-  training, gradient ``pmean``) touches ICI.
+  training, gradient ``pmean``) crosses devices.
 * ``spp`` — the sample axis (the analog of the 4000-iteration accumulation
   loop, ``main.c:98-99``): each device traces a disjoint slice of sample ids
   and the per-device means are ``pmean``-combined.
 
-Multi-host pods call :func:`initialize_distributed` once per process before
-any jax usage; afterwards ``jax.devices()`` spans the whole slice and the same
-mesh code works unchanged (collectives ride ICI inside a slice, DCN only for
-host orchestration).
+Multi-host clusters call :func:`initialize_distributed` once per process
+before any jax usage; afterwards ``jax.devices()`` spans every process's
+devices and the same mesh code works unchanged.
 """
 
 from __future__ import annotations
@@ -30,11 +29,11 @@ def initialize_distributed(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """Multi-host bring-up: ``jax.distributed.initialize`` with auto-detect.
+    """Multi-host bring-up: ``jax.distributed.initialize``.
 
-    On Cloud TPU all three arguments can be ``None`` (the runtime discovers
-    them from the metadata server). Safe to call on a single host — it is a
-    no-op when there is nothing to coordinate.
+    Pass the coordinator's ``host:port``, the process count and this
+    process's id; JAX discovers them itself only on clusters whose runtime
+    publishes them. A no-op when ``num_processes <= 1``.
     """
     if num_processes is not None and num_processes <= 1:
         return
@@ -53,7 +52,9 @@ def make_mesh(
     """Build a ``(px, spp)`` mesh over the available devices.
 
     ``px=None`` takes every device not consumed by ``spp``. The defaults give
-    a 1-D pixel mesh over all chips — the pure image-space decomposition.
+    a 1-D pixel mesh over all devices — the pure image-space decomposition.
+    The device list is reshaped in order: every device reaches every other
+    at the same rate over NVLink, so the layout follows the algorithm only.
     """
     devices = list(jax.devices()) if devices is None else list(devices)
     n = len(devices)

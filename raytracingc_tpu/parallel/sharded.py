@@ -1,22 +1,22 @@
 """Sharded rendering and sharded differentiable training steps.
 
-This is the TPU-native form of the reference's parallel executor
+This is the device-mesh form of the reference's parallel executor
 (``rowThread`` + pthread spawn/join, ``main.c:81-105,284-303``):
 
 * The pixel axis is sharded over the mesh's ``px`` dimension (the row-cyclic
   analog — disjoint output tiles, zero communication while tracing).
 * The sample axis (the reference's sequential 4000-iteration accumulation,
   ``main.c:98-99``) optionally shards over the ``spp`` mesh dimension; the
-  per-device sample means are ``pmean``-combined over ICI.
-* Scene buffers are replicated (suzannes' 3,868 triangles ≈ 170 KB f32 SoA —
-  trivially replicable; block-sharding + all-gather is a future lever for
-  scenes beyond VMEM scale).
+  per-device sample means are ``pmean``-combined.
+* Scene buffers are replicated by default (a few thousand triangles are a
+  few hundred KB of f32 SoA); ``scene_sharding="blocks"`` shards them 1/n
+  per device instead, for scenes too large to replicate.
 * For training, per-shard scene gradients are ``pmean``-reduced over both mesh
   axes inside the step, so the optimizer update is identical on every device —
   pure data parallelism over rays/samples with replicated parameters.
 
 Everything is ``shard_map`` over an explicit ``Mesh``: collectives are
-spelled out (``pmean``/``psum``), shardings are named, and the Pallas search
+spelled out (``pmean``/``psum``), shardings are named, and the search
 kernel runs per-shard without SPMD partitioning hazards.
 """
 
@@ -114,8 +114,8 @@ def _render_sharded_jit(
         # Combine the sample-axis partial means; total traced-ray count over
         # the whole mesh (for honest rays/s accounting).
         radiance = jax.lax.pmean(radiance, "spp")
-        count = jax.lax.psum(count, ("px", "spp"))
-        return radiance, count
+        count = count.psum(("px", "spp"))
+        return radiance, count.value()
 
     radiance, count = shard_map(
         shard_fn,
@@ -240,16 +240,12 @@ def pad_scene_for_blocks(scene: Scene, n: int) -> Scene:
 
 def _scene_block_specs(scene: Scene):
     """Per-leaf PartitionSpecs: triangle buffers shard dim 0 over ``px``,
-    spheres/env replicate. Works for both the original-order SoA (resolve
-    tables) and the accel's permuted tables (search) — each shards into
-    contiguous ranges of its own order; the partitions differ per device but
-    merge to the same global result (search returns ORIGINAL indices)."""
+    spheres/env replicate. The search and the resolve read the
+    original-order SoA, whose contiguous shards the search globalizes and
+    lex-merges; the accel's permuted tables shard alongside."""
 
     def spec(path, leaf):
         ks = jax.tree_util.keystr(path)
-        if ks == ".accel.packed_plane":
-            # (12, T) component-rows plane: triangles live on dim 1.
-            return P(None, "px")
         if ks.startswith(".triangles.") or ks.startswith(".accel."):
             return P("px")
         return P()
@@ -276,16 +272,14 @@ def render_sharded_blocks(
 
     SURVEY §5.8's large-scene layout: instead of replicating the scene and
     sharding rays, each device holds a contiguous 1/n shard of every
-    triangle buffer (original-order SoA for the differentiable resolve,
-    Morton-block tables for the search) and traces ALL rays against its
-    shard; per-bounce the per-shard winners lex-merge over the axis
-    (``all_gather`` of (dst, original idx) — exactly the kernels' internal
-    tie rule, so the merged winner is bit-identical to a whole-scene
-    search) and the winning payload combines with a masked ``psum``. Rays
-    and shading are replicated over ``px`` — duplicated VPU work that is
-    negligible for the scenes this layout exists for (search cost scales
-    with triangles; per-chip triangle HBM drops to 1/n, see BASELINE.md
-    "block-sharded HBM accounting").
+    triangle buffer and traces ALL rays against its shard; per-bounce the
+    per-shard winners lex-merge over the axis (``all_gather`` of (dst,
+    original idx) — the search's own tie rule, so the merged winner is
+    bit-identical to a whole-scene search) and the winning payload combines
+    with a masked ``psum``. Rays and shading are replicated over ``px`` —
+    duplicated elementwise work that is small next to the search for the
+    scenes this layout exists for (search cost scales with triangles; per-
+    device triangle memory drops to 1/n).
 
     The ``spp`` mesh axis still shards samples exactly as in the replicated
     mode. Requires block count % px == 0 — call :func:`pad_scene_for_blocks`
@@ -353,8 +347,8 @@ def _render_sharded_blocks_jit(
         radiance = jax.lax.pmean(radiance, "spp")
         # Every px rank traced every (logical) ray of its spp shard — the
         # count is already replicated over px; sum samples only.
-        count = jax.lax.psum(count, "spp")
-        return radiance, count
+        count = count.psum("spp")
+        return radiance, count.value()
 
     radiance, count = shard_map(
         shard_fn,
@@ -404,16 +398,12 @@ def make_train_step(
     With the default ``geometry_trainable=True`` and an accel-carrying
     scene, the loss runs against a **refreshed accel**
     (:func:`~raytracingc_tpu.ops.accel.refresh_accel`): the host-built
-    Morton permutation stays static while the permuted geometry copy, block
-    AABBs, and packed search plane are regenerated in-trace from the
-    current triangles — exact at every step, O(T) per refresh, with only
-    culling QUALITY ageing as vertices drift from the sort (re-sort
-    host-side every k steps; see ``fit_scene(accel_rebuild_every=...)``).
-    This is what makes vertex training viable at accel scale (VERDICT r4
-    item 2): the old accel-free fallback routed the search through an
-    always-hit trivial accel — O(R·T) with zero culling — which only a
-    few-thousand-triangle scene survives. A scene WITHOUT an accel still
-    takes that fallback. Pass ``geometry_trainable=False`` for
+    Morton permutation stays static while the permuted geometry copy and
+    block AABBs are regenerated in-trace from the current triangles —
+    exact at every step, O(T) per refresh, with only locality ageing as
+    vertices drift from the sort (re-sort host-side every k steps; see
+    ``fit_scene(accel_rebuild_every=...)``). A scene WITHOUT an accel runs
+    the loss accel-free. Pass ``geometry_trainable=False`` for
     material/env-only training to keep the (then-valid) frozen accel inside
     the loss with no per-step refresh.
 
@@ -481,19 +471,4 @@ def make_train_step(
         out_specs=(P(), P(), P()),
         check_vma=False,
     )
-    jitted = jax.jit(sharded)
-    if not geometry_trainable:
-        return jitted
-
-    def step(scene, opt_state, *args):
-        # mxu_coeffs are eager-only (refresh_accel returns None there); strip
-        # them up front so the input and output scene pytrees match from the
-        # first call — otherwise step(step(...)) would retrace once and the
-        # coefficient table would ride every device_put for nothing.
-        if scene.accel is not None and scene.accel.mxu_coeffs is not None:
-            scene = scene.replace(
-                accel=scene.accel.replace(mxu_coeffs=None)
-            )
-        return jitted(scene, opt_state, *args)
-
-    return step
+    return jax.jit(sharded)

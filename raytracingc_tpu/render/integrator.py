@@ -33,6 +33,68 @@ from raytracingc_tpu.ops.intersect import (
     with_perm_resolve,
 )
 from raytracingc_tpu.scene.types import Scene
+from raytracingc_tpu.utils.pytree import pytree_node
+
+_LO_BITS = 16
+
+
+@pytree_node
+class RayCount:
+    """An exact count of traced rays: ``hi * 2**16 + lo``, two uint32 words.
+
+    A frame traces more rays than float32 counts exactly (2**24), and a
+    float32 sum rounds by amounts that depend on the order of its terms, so
+    a chunked and a sharded render of one frame would report different
+    totals. This count is exact up to 2**48 rays and order-independent;
+    ``value()`` (or ``float()``) rounds it to float32 once.
+    """
+
+    hi: jax.Array  # uint32
+    lo: jax.Array  # uint32, < 2**16 after every operation
+
+    @classmethod
+    def of(cls, n) -> "RayCount":
+        """From a non-negative int32 count (e.g. live lanes of one pass)."""
+        n = jnp.asarray(n).astype(jnp.uint32)
+        return cls(hi=n >> _LO_BITS, lo=n & ((1 << _LO_BITS) - 1))
+
+    @classmethod
+    def zero(cls) -> "RayCount":
+        return cls.of(jnp.int32(0))
+
+    def _carried(self) -> "RayCount":
+        return RayCount(hi=self.hi + (self.lo >> _LO_BITS),
+                        lo=self.lo & ((1 << _LO_BITS) - 1))
+
+    def __add__(self, other: "RayCount") -> "RayCount":
+        return RayCount(hi=self.hi + other.hi, lo=self.lo + other.lo)._carried()
+
+    def times(self, k: int) -> "RayCount":
+        """``self * k`` for a static ``k >= 0``, by doubling."""
+        out = RayCount.zero()
+        acc = self
+        while k:
+            if k & 1:
+                out = out + acc
+            acc, k = acc + acc, k >> 1
+        return out
+
+    def sum(self) -> "RayCount":
+        """Total over a leading axis (at most 2**16 terms, e.g. chunks)."""
+        return RayCount(hi=jnp.sum(self.hi), lo=jnp.sum(self.lo))._carried()
+
+    def psum(self, axis_name) -> "RayCount":
+        """Total over mesh axes (at most 2**16 devices)."""
+        return RayCount(hi=jax.lax.psum(self.hi, axis_name),
+                        lo=jax.lax.psum(self.lo, axis_name))._carried()
+
+    def value(self) -> jax.Array:
+        """The count as float32: exact below 2**24, else rounded once."""
+        return (self.hi.astype(jnp.float32) * jnp.float32(1 << _LO_BITS)
+                + self.lo.astype(jnp.float32))
+
+    def __float__(self) -> float:
+        return float(self.value())
 
 
 def _normalize(v: jax.Array) -> jax.Array:
@@ -56,8 +118,8 @@ def trace_paths(
     first_hit=None,  # optional precomputed Hit for bounce 0 (primary cache)
     compact: bool = False,  # tiered live-lane compaction (see docstring)
     throughput0: jax.Array | None = None,  # [R, 3] initial path throughput
-) -> tuple[jax.Array, jax.Array]:
-    """Trace one sample per ray. Returns ``(radiance [R, 3], rays_traced [])``.
+) -> tuple[jax.Array, RayCount]:
+    """Trace one sample per ray. Returns ``(radiance [R, 3], rays_traced)``.
 
     ``rays_traced`` is the total number of scene intersections actually
     performed by live lanes (for throughput accounting). Lanes with
@@ -88,12 +150,12 @@ def trace_paths(
         jnp.zeros((r, 3), jnp.float32),  # accumulated radiance
         alive0,  # alive mask
         rng_state,
-        jnp.zeros((), jnp.float32),  # traced-ray counter
+        RayCount.zero(),  # traced-ray counter
     )
 
     def bounce_with_hit(carry, hit):
         pos, d, throughput, light, alive, state, count = carry
-        count = count + jnp.sum(alive.astype(jnp.float32))  # rays traced this step
+        count = count + RayCount.of(jnp.sum(alive, dtype=jnp.int32))
 
         # Scatter (``raytracing.c:274-277``). Drawing random numbers for dead
         # lanes is harmless: each lane owns an independent counter stream.
@@ -150,13 +212,8 @@ def trace_paths(
         # original slot once per tier exit (deeper tiers overwrite — the
         # deepest value is the lane's final one).
         #
-        # This replaced the round-2 interim design (a lax.switch choosing a
-        # gather→bounce→scatter-back branch PER BOUNCE): profiling showed the
-        # per-bounce scatter-backs of 7 state arrays were ~50% of the whole
-        # suzannes bench (569 scatters × 636 µs for the /64 tier alone),
-        # dwarfing the 50 µs tier search they wrapped. In the cascade, state
-        # moves only at tier transitions (≤3 per chunk per sample) and dead
-        # lanes' state is simply abandoned. Bit-identical results (lanes are
+        # State moves only at tier transitions (≤3 per chunk per sample),
+        # not on every bounce, and dead lanes' state is simply abandoned. Bit-identical results (lanes are
         # independent, counter-based RNG rides along).
         #
         # A tier exit can also happen because the bounce budget or all lanes
@@ -195,10 +252,9 @@ def trace_paths(
                 k = sizes[t + 1]
                 pos_b, d_b, thr_b, light_b, alive_b, state_b, count_b = buf
                 sel = _alive_front_perm(alive_b)[:k]
-                # One packed row-gather instead of 7 parallel small gathers
-                # (the round-1 resolve measurement: parallel small gathers
-                # are several× a single row-gather of the same bytes). The
-                # non-f32 columns ride along bitcast: exact data movement.
+                # One packed row-gather instead of 7 parallel small gathers.
+                # The non-f32 columns ride along bitcast: exact data
+                # movement.
                 bc = jax.lax.bitcast_convert_type
                 packed = jnp.concatenate(
                     [
@@ -250,8 +306,9 @@ def trace_accumulate(
     sample_batch: int | str = 1,
     compact: bool = True,
     sample_group: int | str = 1,
-) -> tuple[jax.Array, jax.Array]:
+) -> tuple[jax.Array, RayCount]:
     """Average ``spp`` samples per ray (``main.c:98-99``'s 1/N accumulation).
+    Returns ``(radiance [R, 3], rays_traced)``.
 
     Mode matrix (``early_exit``, ``compact``):
 
@@ -270,17 +327,17 @@ def trace_accumulate(
     (seed, ray_id, sample_id) — so per-lane radiance values are identical
     however the samples are scheduled. Samples are processed
     ``sample_batch`` at a time as one widened ray batch (lane ``k*R + i`` is
-    sample ``k`` of ray ``i``). Measured on the suzannes bench this is mildly
-    NEGATIVE (11.3M vs 12.3M rays/s at batch=8): wider batches amortize pass
-    overheads but lose per-sample early-exit granularity (a batch's bounce
-    loop runs until ALL its samples die). Default 1; the knob exists for
-    workloads with heavier per-pass overhead (tiny chunks, many chunks).
+    sample ``k`` of ray ``i``). Wider batches amortize pass overheads but
+    lose per-sample early-exit granularity (a batch's bounce loop runs until
+    ALL its samples die). Default 1; the knob exists for workloads with
+    heavier per-pass overhead (tiny chunks, many chunks).
     ``"auto"`` picks the largest divisor of ``spp`` up to 8.
 
     ``sample_offset`` shifts the sample-id range — the hook for sharding the
     sample axis over devices: device ``k`` passes ``offset = k * spp`` and the
-    per-device means are ``pmean``-combined, identical in expectation (and, for
-    equal shards, exactly) to a single device tracing ``n * spp`` samples.
+    per-device means are ``pmean``-combined: the same per-sample radiance
+    and ray count as a single device tracing ``n * spp`` samples, with the
+    sum re-associated (3.2e-7 of the radiance at 1080p on four H100s).
     """
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
@@ -312,7 +369,7 @@ def trace_accumulate(
     assert spp % sample_batch == 0, (spp, sample_batch)
     n_batches = spp // sample_batch
 
-    # Locality-sorted resolve (round 5): attach the Morton-permuted resolve
+    # Locality-sorted resolve: attach the Morton-permuted resolve
     # table once; every bounce's resolve gathers from it (same bits, same
     # gradients — see ``with_perm_resolve``).
     scene = with_perm_resolve(scene)
@@ -352,20 +409,20 @@ def trace_accumulate(
             acc = acc + jnp.sum(radiance.reshape(sample_batch, r, 3), axis=0)
             return (acc, total + count), None
 
-        init = (jnp.zeros((r, 3), jnp.float32), jnp.zeros((), jnp.float32))
+        init = (jnp.zeros((r, 3), jnp.float32), RayCount.zero())
         (acc, total), _ = jax.lax.scan(
             init=init, f=batch, xs=jnp.arange(n_batches, dtype=jnp.uint32)
         )
         return acc / jnp.float32(spp), total
 
     if (early_exit or compact) and max_bounce >= 1:
-        # Entry-width ladder: tightest first. The suzannes bench's typical
-        # chunk has ~11% hit lanes, so most chunks enter at R/8 — halving
-        # the per-sample search width and the cascade-transition cost vs a
-        # fixed R/4 entry.
+        # Entry-width ladder: tightest first. A chunk whose primary rays
+        # mostly miss (open scenes) enters at R/8 — halving the per-sample
+        # search width and the cascade-transition cost vs a fixed R/4
+        # entry.
         #
         # ``early_exit=False, compact=True`` is the DIFFERENTIABLE fast
-        # forward (VERDICT r3 item 3): the same hit-front structure — the
+        # forward: the same hit-front structure — the
         # per-chunk compaction permutation depends only on the deterministic
         # (stop-gradient) ``hit0.hit``, and every gather/scatter here is
         # reverse-differentiable — but the per-sample continuation runs as a
@@ -379,7 +436,7 @@ def trace_accumulate(
         ]
         if sample_group == "auto":
             # Largest divisor of spp that keeps the batched R/8-entry width
-            # near the measured 64k sweet spot (branch-independent: g is a
+            # near 64k rays (branch-independent: g is a
             # function of (spp, r) only, so every switch branch and width
             # adds the SAME sample slices in the same order).
             cap = max(65536 // max(r // 8, 1), 1)
@@ -402,7 +459,7 @@ def trace_accumulate(
         )
         return (acc + radiance, total + count), None
 
-    init = (jnp.zeros_like(origins), jnp.zeros((), jnp.float32))
+    init = (jnp.zeros_like(origins), RayCount.zero())
     (acc, total), _ = jax.lax.scan(
         init=init, f=sample, xs=jnp.arange(spp, dtype=jnp.uint32) + offset
     )
@@ -498,7 +555,7 @@ def _hit_front_accumulate(
         jnp.where(hitm[:, None], emitted, 0.0)
         + jnp.where((act & ~hit0.hit)[:, None], env, 0.0)
     )
-    count0 = jnp.sum(act.astype(jnp.float32)) * jnp.float32(spp)
+    count0 = RayCount.of(jnp.sum(act, dtype=jnp.int32)).times(spp)
 
     sample_ids = jnp.arange(spp, dtype=jnp.uint32) + offset
 
@@ -549,7 +606,7 @@ def _hit_front_accumulate(
                 return (acc, total + cnt), None
 
             init = (
-                jnp.zeros((width, 3), jnp.float32), jnp.zeros((), jnp.float32)
+                jnp.zeros((width, 3), jnp.float32), RayCount.zero()
             )
             (acc, total), _ = jax.lax.scan(
                 group, init, sample_ids.reshape(spp // g, g)
@@ -574,7 +631,7 @@ def _hit_front_accumulate(
             return (acc + light_s, total + cnt), None
 
         init = (
-            jnp.zeros((width, 3), jnp.float32), jnp.zeros((), jnp.float32)
+            jnp.zeros((width, 3), jnp.float32), RayCount.zero()
         )
         (acc, total), _ = jax.lax.scan(sample, init, sample_ids)
         return acc, total
@@ -616,8 +673,8 @@ def _hit_front_accumulate(
                 bc(packed[:, 13], jnp.uint32), lanes, k0,
             )
             # Map-back as a GATHER by the inverse permutation, not a
-            # scatter-add: TPU scatters serialize (~600 us per 64k chunk
-            # measured; the gather is ~10x cheaper). Non-hit lanes read
+            # scatter-add (not yet timed against the scatter on the GPU,
+            # where scatters can be atomic-free too). Non-hit lanes read
             # masked zeros (slots [n_hit, k0)) or the zero padding
             # (slots >= k0) — adding 0.0 matches the old "never touched"
             # semantics bitwise for the non-negative radiance values here.

@@ -60,9 +60,13 @@ def render(
     lanes are dead and accumulates samples hit-front (see
     ``integrator._hit_front_accumulate``). Per-lane radiance equals the
     fixed-length scan up to float re-association of the bounce-0 light sum
-    (~1e-6) with exactly equal traced-ray counts, and — by design — is
-    IDENTICAL bitwise across any chunking or sharding of the pixel axis
-    (every width uses the same ``light0*spp + sum(rest)`` association).
+    (~1e-6) with exactly equal traced-ray counts. Every chunk width runs
+    the same per-lane arithmetic with the same ``light0*spp + sum(rest)``
+    association, but XLA compiles a multi-chunk frame (a ``lax.map`` loop
+    body) and a one-chunk frame differently: the two can differ in the
+    last bit of some rays, and then in the few pixels where that bit flips
+    a discrete choice (12 of 2,073,600 at 1080p × 8 spp on an H100).
+    Pixel-sharded ``render_sharded`` equals the one-chunk frame bit for bit.
     NOT reverse-differentiable; pass ``False`` when differentiating —
     with ``compact=True`` (the default) that is still the FAST hit-front
     path (fixed-length continuation in the compacted domain, bit-identical
@@ -70,7 +74,7 @@ def render(
     plain scan oracle.
 
     ``sample_group`` batches that many samples of the hit-front continuation
-    into one widened trace (``"auto"`` targets the 64k sweet spot) — fewer,
+    into one widened trace (``"auto"`` targets 64k rays) — fewer,
     larger launches. Per-lane arithmetic and the accumulation association
     are identical at any group size (slices add sequentially in sample
     order), so results agree within the repo-wide ~1-ulp XLA
@@ -81,11 +85,10 @@ def render(
     """
     n_pix = width * height
     if pixel_chunk is None:
-        # 64k-ray chunks + live-lane compaction: measured round-2 optimum on
-        # the suzannes 1080p bench (64k+compact 15.7M rays/s > 8k 12.8M >
-        # 256k+compact 12.9M). Compaction makes secondary-bounce cost track
-        # the live-lane count, which moves the chunk sweet spot up from the
-        # round-1 launch-overhead-bound 8k.
+        # 64k-ray chunks + live-lane compaction. Compaction makes
+        # secondary-bounce cost track the live-lane count. On an H100 a
+        # 1080p x 8 spp frame ran 2.4x faster as one chunk; the default
+        # waits for a chunk derived from device memory.
         pixel_chunk = int(min(max(_round_up(n_pix, 1024), 1024), 65536))
     origins, dirs = primary_rays(camera, width, height)
     ray_ids = jnp.arange(n_pix, dtype=jnp.uint32)
@@ -119,10 +122,10 @@ def render(
             one_chunk, (resh(origins), resh(dirs), resh(ray_ids), resh(active))
         )
         radiance = radiance.reshape(padded, 3)
-        count = jnp.sum(counts)
+        count = counts.sum()
 
     image = radiance[:n_pix].reshape(height, width, 3)
-    return image, count
+    return image, count.value()
 
 
 def render_image(

@@ -10,7 +10,7 @@ used only in ``triangles.txt`` mode (``trianglesOnly`` stays 0, ``main.c:113``).
 Padding: triangle counts are padded up to a multiple of ``pad_to`` with all-zero
 triangles (guaranteed misses — zero normal fails the backface test), and sphere
 counts with radius-0 spheres (treated as misses). This keeps every downstream
-shape static and lane-aligned for the TPU kernels.
+shape static and a whole number of accel blocks.
 """
 
 from __future__ import annotations
@@ -197,9 +197,8 @@ def tessellate(
     Children inherit the parent's stored normal and material, and their
     union covers exactly the parent's surface — a tessellated scene renders
     the same image as the original (the per-hit shading inputs are equal),
-    which makes this the scale-up tool for exercising the tile-streamed
-    search kernel (SURVEY §7 "block-streaming for ultracomplex-scale future
-    scenes") on scenes far past the bundled assets' ~4k triangles.
+    which makes this the scale-up tool for exercising the search on scenes
+    far past the bundled assets' ~4k triangles.
     """
     a = np.asarray(tris.a[:n_live], np.float32)
     b = np.asarray(tris.b[:n_live], np.float32)

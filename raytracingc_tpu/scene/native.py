@@ -1,6 +1,6 @@
 """ctypes bindings for the native C++ scene loader.
 
-The compute path is JAX/XLA/Pallas; the ingest runtime around it is native
+The compute path is JAX (XLA and one Pallas kernel); the ingest runtime around it is native
 C++ (``native/rtc_loader.cpp``), mirroring the reference's C loader layer
 (``objloader.c``, ``raytracing.c:19-98``) — built as a plain shared library
 and bound via ctypes (no pybind11 in this environment).
@@ -8,7 +8,9 @@ and bound via ctypes (no pybind11 in this environment).
 ``load_obj_native`` / ``load_triangles_txt_native`` return the same numpy
 arrays as the pure-Python parsers in ``obj_loader.py`` / ``triangles_txt.py``
 (which remain the portable fallback). :func:`available` reports whether the
-library is built; :func:`build` compiles it with g++ on demand.
+library is built; :func:`build` compiles it with g++ on demand, and again
+whenever ``native/rtc_loader.cpp`` is newer than the library, so a stale
+library copied along with a working tree never runs.
 """
 
 from __future__ import annotations
@@ -22,17 +24,28 @@ import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
 _LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "librtc_loader.so"))
+_SRC_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "rtc_loader.cpp"))
 
 _lib: Optional[ctypes.CDLL] = None
 
 
+def is_stale(lib_path: str = _LIB_PATH, src_path: str = _SRC_PATH) -> bool:
+    """True when the library is missing or older than its source."""
+    if not os.path.exists(lib_path):
+        return True
+    return os.path.exists(src_path) and (
+        os.path.getmtime(src_path) > os.path.getmtime(lib_path)
+    )
+
+
 def build(force: bool = False) -> bool:
-    """Compile the native library (returns True on success)."""
-    if os.path.exists(_LIB_PATH) and not force:
+    """Compile the native library when stale (returns True on success)."""
+    if not force and not is_stale():
         return True
     try:
+        # -B: rebuild unconditionally; staleness was decided above.
         subprocess.run(
-            ["make", "-C", os.path.abspath(_NATIVE_DIR)],
+            ["make", "-B", "-C", os.path.abspath(_NATIVE_DIR)],
             check=True,
             capture_output=True,
         )
@@ -45,7 +58,7 @@ def _load() -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH) and not build():
+    if is_stale() and not build():
         return None
     lib = ctypes.CDLL(_LIB_PATH)
     pf = ctypes.POINTER(ctypes.c_float)

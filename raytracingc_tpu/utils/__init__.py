@@ -2,7 +2,7 @@
 
 The reference has none of these (SURVEY.md §5: no timers, no checkpoints, a
 ``.parsed`` disk cache as the only persisted intermediate). They are
-first-class here because multi-host TPU renders and optimization runs are
+first-class here because multi-device renders and optimization runs are
 long-lived jobs.
 """
 

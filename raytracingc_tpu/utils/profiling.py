@@ -5,10 +5,10 @@ own speed). Here:
 
 * :class:`Profiler` — lightweight wall-clock phase timers plus derived
   throughput (rays/s) accounting, printable as a one-line summary.
-* :func:`trace_annotation` — names a region for the XLA/TPU profiler
-  (``jax.profiler.TraceAnnotation``), visible in TensorBoard/xprof traces.
+* :func:`trace_annotation` — names a region for the JAX profiler
+  (``jax.profiler.TraceAnnotation``), visible in TensorBoard/Perfetto traces.
 * :func:`start_trace` / :func:`stop_trace` — capture a device trace for a
-  window of steps (wraps ``jax.profiler``; works on TPU and CPU).
+  window of steps (wraps ``jax.profiler``; works on the GPU and the CPU).
 """
 
 from __future__ import annotations

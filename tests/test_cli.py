@@ -37,9 +37,9 @@ def test_cli_obj_render(models_dir, tmp_path, capsys):
     assert capsys.readouterr().out.count("rays traced") == 1
 
 
-def test_cli_default_mode(reference_dir, tmp_path):
+def test_cli_default_mode(box_scene_path, tmp_path):
     out = str(tmp_path / "out.png")
-    rc = main(["--triangles", os.path.join(reference_dir, "triangles.txt"),
+    rc = main(["--triangles", box_scene_path,
                "-s", "8", "8", "--spp", "2", "-b", "2", "-o", out])
     assert rc == 0
 

@@ -1,4 +1,4 @@
-"""Intersection tests: analytic cases + XLA/Pallas backend agreement."""
+"""Intersection tests: analytic cases + XLA/Pallas-kernel search agreement."""
 
 import numpy as np
 import pytest
@@ -144,19 +144,20 @@ def _random_scene_and_rays(seed, n_tris=96, n_rays=200):
 
 
 def test_pallas_matches_xla_interpret():
-    """Pallas (interpreter mode on CPU) agrees with the XLA search exactly."""
+    """The Pallas search kernel (interpreter mode on CPU) agrees with the
+    XLA search exactly."""
     scene, o, d = _random_scene_and_rays(0)
     ref_x = nearest_hit(o, d, scene, backend="xla")
-    ref_p = nearest_hit(o, d, scene, backend="pallas")
+    ref_p = nearest_hit(o, d, scene, backend="triton-interpret")
     np.testing.assert_array_equal(np.asarray(ref_x.hit), np.asarray(ref_p.hit))
     np.testing.assert_array_equal(np.asarray(ref_x.idx), np.asarray(ref_p.idx))
 
 
 def test_pallas_matches_xla_multi_chunk():
-    """More triangles than one 128-lane chunk; odd ray count (padding path)."""
+    """Many triangle blocks; odd ray count (padding path)."""
     scene, o, d = _random_scene_and_rays(1, n_tris=300, n_rays=77)
     ref_x = nearest_hit(o, d, scene, backend="xla")
-    ref_p = nearest_hit(o, d, scene, backend="pallas")
+    ref_p = nearest_hit(o, d, scene, backend="triton-interpret")
     np.testing.assert_array_equal(np.asarray(ref_x.hit), np.asarray(ref_p.hit))
     np.testing.assert_array_equal(np.asarray(ref_x.idx), np.asarray(ref_p.idx))
 

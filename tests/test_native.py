@@ -34,8 +34,8 @@ def test_missing_mtl_warns_not_errors(models_dir):
     assert (a == 1.0).all() and (e == 0.0).all()
 
 
-def test_triangles_txt_parity(reference_dir):
-    path = os.path.join(reference_dir, "triangles.txt")
+def test_triangles_txt_parity(box_scene_path):
+    path = box_scene_path
     got = native.load_triangles_txt_native(path)
     ref = load_triangles_txt(path)
     for g, r in zip(got, ref):
@@ -68,3 +68,30 @@ def test_builder_native_matches_python(models_dir):
         np.asarray(sn.triangles.albedo), np.asarray(sp.triangles.albedo)
     )
     assert sn.n_triangles == sp.n_triangles
+
+
+def test_stale_library_is_detected(tmp_path):
+    """A library older than rtc_loader.cpp (e.g. copied along with a working
+    tree) is stale and gets rebuilt instead of loaded."""
+    src, lib = tmp_path / "rtc_loader.cpp", tmp_path / "librtc_loader.so"
+    src.write_text("// source")
+    assert native.is_stale(str(lib), str(src))  # missing library
+    lib.write_text("binary")
+    os.utime(src, (1000, 1000))
+    os.utime(lib, (2000, 2000))
+    assert not native.is_stale(str(lib), str(src))
+    os.utime(src, (3000, 3000))
+    assert native.is_stale(str(lib), str(src))
+
+
+def test_stale_library_rebuild_from_source(tmp_path, monkeypatch):
+    """build() runs make only when the library is stale."""
+    calls = []
+    monkeypatch.setattr(native.subprocess, "run",
+                        lambda cmd, **kw: calls.append(cmd))
+    monkeypatch.setattr(native, "is_stale", lambda *a: False)
+    assert native.build()
+    assert calls == []
+    monkeypatch.setattr(native, "is_stale", lambda *a: True)
+    native.build()
+    assert calls and calls[0][:2] == ["make", "-B"]

@@ -6,8 +6,7 @@ Pins the fixes from the round-1 review:
   only the scatter direction) — the heatmap walk must not terminate paths
   stochastically.
 * The accel carries a frozen geometry copy; training geometry (or replacing
-  triangles) with a stale accel attached makes the Pallas search intersect
-  different geometry than resolve shades.
+  triangles) must not leave a stale accel attached to the scene.
 """
 
 import os
@@ -107,9 +106,10 @@ def _two_tri_scene() -> Scene:
 
 
 def test_with_triangles_invalidates_accel():
-    """``with_triangles`` must not leave the Pallas search on stale geometry."""
+    """``with_triangles`` must not leave a stale accel on moved geometry;
+    the search follows the live triangles either way."""
     from raytracingc_tpu.ops.intersect import _search_triangles_xla
-    from raytracingc_tpu.ops.intersect_pallas import search_triangles_pallas
+    from raytracingc_tpu.ops.search_triton import search_triangles_triton
 
     scene = _two_tri_scene()
     # Move every vertex 2 units along +z (away from the camera).
@@ -123,19 +123,19 @@ def test_with_triangles_invalidates_accel():
 
     o = jnp.zeros((8, 3), jnp.float32)
     d = jnp.tile(jnp.array([[0.0, 0.0, 1.0]], jnp.float32), (8, 1))
-    d_pal, _ = search_triangles_pallas(
-        o, d, moved.triangles, interpret=True, accel=moved.accel
-    )
+    d_pal, _ = search_triangles_triton(o, d, moved.triangles, interpret=True)
     d_xla, _ = _search_triangles_xla(o, d, moved.triangles, chunk=moved.triangles.count)
     np.testing.assert_allclose(np.asarray(d_pal), np.asarray(d_xla), rtol=1e-6)
     # And the hit is at the moved depth (5), not the stale one (3).
     assert abs(float(d_pal[0]) - 5.0) < 1e-4
 
     rebuilt = scene.with_triangles(moved_tris, rebuild_accel=True)
-    d_reb, _ = search_triangles_pallas(
-        o, d, rebuilt.triangles, interpret=True, accel=rebuilt.accel
+    d_reb, _ = search_triangles_triton(
+        o, d, rebuilt.triangles, interpret=True
     )
     np.testing.assert_allclose(np.asarray(d_reb), np.asarray(d_xla), rtol=1e-6)
+    # The rebuilt accel bounds the MOVED triangles (far one now at z = 8).
+    assert float(np.asarray(rebuilt.accel.aabb_hi)[0, 2]) == 8.0
 
 
 def test_fit_scene_geometry_training_loss_accel(monkeypatch):
@@ -172,7 +172,6 @@ def test_fit_scene_geometry_training_loss_accel(monkeypatch):
         scene, target, cam, steps=1, spp=1, max_bounce=1, learning_rate=0.0
     )
     assert len(seen) == 1 and seen[0].accel is not None
-    assert seen[0].accel.mxu_coeffs is None  # eager-only table stripped
     assert fitted.accel is not None  # fresh-sorted on return
 
     # No accel on the scene: geometry training falls back to accel-free.
@@ -318,10 +317,10 @@ def test_fit_scene_mesh_material_training_keeps_accel():
 
 
 def test_onehot_resolve_matches_gather():
-    """resolve_hit uses a one-hot MXU matmul instead of a row-gather for
-    tables of <= 256 rows (bitwise-equal on hardware, see BASELINE.md).
-    Pin both code paths against each other by padding the same scene past
-    the threshold."""
+    """resolve_hit uses a one-hot matmul instead of a row-gather for
+    tables of <= 256 rows (equal values; ``chip_smoke.py`` checks the bits
+    on the card). Pin both code paths against each other by padding the
+    same scene past the threshold."""
     import jax.numpy as jnp
     import numpy as np
 
@@ -329,7 +328,10 @@ def test_onehot_resolve_matches_gather():
     from raytracingc_tpu.ops.intersect import nearest_hit, resolve_hit
     from raytracingc_tpu.scene.builder import scene_from_triangles_txt
 
-    scene = scene_from_triangles_txt("/root/reference/triangles.txt")
+    scene = scene_from_triangles_txt(
+        os.path.join(os.path.dirname(__file__), "..", "examples",
+                     "box_scene.txt")
+    )
     assert scene.triangles.a.shape[0] <= 256  # one-hot path
 
     cam = Camera.look_at()
@@ -356,38 +358,3 @@ def test_onehot_resolve_matches_gather():
         np.testing.assert_array_equal(
             np.asarray(getattr(hit_small, field)),
             np.asarray(getattr(hit_big, field)), err_msg=field)
-
-
-def test_brute_fori_loop_matches_unrolled(monkeypatch):
-    """Past BRUTE_UNROLL_TRIS the brute kernel switches to a fori_loop with
-    dynamic SMEM scalar reads; force that path and pin it against the
-    XLA search."""
-    import numpy as np
-
-    import raytracingc_tpu.ops.intersect_pallas as ip
-    from raytracingc_tpu.camera import Camera, primary_rays
-    from raytracingc_tpu.ops.intersect import _search_triangles_xla
-    from raytracingc_tpu.scene.builder import triangles_from_arrays
-
-    monkeypatch.setattr(ip, "BRUTE_UNROLL_TRIS", 0)
-
-    rng = np.random.default_rng(5)
-    t = 40
-    centers = rng.uniform(-6, 6, size=(t, 3)).astype(np.float32)
-    centers[:, 2] += 10.0
-    e1 = rng.normal(size=(t, 3)).astype(np.float32) * 2.0
-    e2 = rng.normal(size=(t, 3)).astype(np.float32) * 2.0
-    verts = np.stack([centers, centers + e1, centers + e2], axis=1)
-    normals = np.cross(e1, e2)
-    normals /= np.maximum(np.linalg.norm(normals, axis=1, keepdims=True), 1e-9)
-    tris, n_live = triangles_from_arrays(
-        verts, normals, np.full((t, 3), 0.5, np.float32),
-        np.zeros(t, np.float32), np.zeros(t, np.float32))
-
-    cam = Camera.look_at(origin=[0.0, 0.0, 0.0], target=[0.0, 0.0, 1.0])
-    o, d = primary_rays(cam, 16, 16)
-    d_br, i_br = ip.search_triangles_pallas(
-        o, d, tris, interpret=True, n_live=n_live)
-    d_x, i_x = _search_triangles_xla(o, d, tris, chunk=128)
-    np.testing.assert_array_equal(np.asarray(i_br), np.asarray(i_x))
-    assert int((np.asarray(i_br) >= 0).sum()) > 20

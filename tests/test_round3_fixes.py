@@ -59,22 +59,3 @@ def test_progressive_samples_shard_validates_batches_up_front():
         shard_strategy="samples",
     )
     assert np.all(np.isfinite(np.asarray(img)))
-
-
-def test_bitmask_smem_slice_bound_scales_with_words():
-    """ADVICE r2: the 262144-ray slice bound was sized for the range
-    kernel's 2-word-per-packet SMEM footprint; the bitmask path carries
-    (n_words + 1) words per packet, so the bound must shrink by n_words."""
-    from raytracingc_tpu.ops.intersect_pallas import (
-        BITS_PER_WORD,
-        _bitmask_slice_bound,
-    )
-
-    assert _bitmask_slice_bound(1) == 262144
-    assert _bitmask_slice_bound(BITS_PER_WORD) == 262144
-    assert _bitmask_slice_bound(BITS_PER_WORD + 1) == 131072  # 2 words
-    assert _bitmask_slice_bound(8 * BITS_PER_WORD) == 32768  # 8 words
-    # Always a positive multiple of the 1024-ray program size.
-    for blocks in (1, 50, 1000, 100_000):
-        b = _bitmask_slice_bound(blocks)
-        assert b >= 1024 and b % 1024 == 0

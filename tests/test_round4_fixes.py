@@ -103,16 +103,16 @@ def test_diff_fast_is_default_for_diff_callers(demo_scene, wide_rays):
 
 
 @pytest.fixture(scope="module")
-def box_scene():
-    """Tessellated triangles.txt box: enough triangles that 8-way block
-    sharding is non-trivial (224 live -> padded to 1024 = 8 blocks)."""
+def box_scene(box_scene_path):
+    """Tessellated in-repo room: enough triangles that 8-way block sharding
+    is non-trivial (160 live -> padded to 1024 = 8 blocks)."""
     from raytracingc_tpu.scene.builder import (
         scene_from_triangles_txt,
         tessellate,
     )
     from raytracingc_tpu.scene.types import Scene
 
-    s0 = scene_from_triangles_txt("/root/reference/triangles.txt")
+    s0 = scene_from_triangles_txt(box_scene_path)
     tris, n = tessellate(s0.triangles, s0.n_triangles, levels=2)
     sc = Scene.build(triangles=tris, spheres=s0.spheres, env=s0.env)
     return sc.replace(n_triangles=n, n_spheres=s0.n_spheres).with_accel()
@@ -136,19 +136,20 @@ def test_block_sharded_render_bitwise_equals_replicated(
     box_scene, cam, strategy
 ):
     """SURVEY §5.8 'block-sharded with all_gather': triangle buffers 1/n per
-    device must render BIT-IDENTICALLY to the replicated single-device path
-    (the lex-merge of per-shard winners is min over a partition of the scan
-    order; the psum payload combine adds only zeros)."""
+    device must render BIT-IDENTICALLY to the replicated scene on the same
+    mesh (the lex-merge of per-shard winners is min over a partition of the
+    scan order; the psum payload combine adds only zeros)."""
     from raytracingc_tpu.parallel.sharded import (
         mesh_for_strategy,
         pad_scene_for_blocks,
         render_sharded,
     )
-    from raytracingc_tpu.render.renderer import render
 
     mesh = mesh_for_strategy(strategy, 8)
     padded = pad_scene_for_blocks(box_scene, mesh.shape["px"])
-    ref, c_ref = render(padded, cam, 16, 16, spp=2, max_bounce=3, seed=5)
+    ref, c_ref = render_sharded(
+        padded, cam, 16, 16, spp=2, max_bounce=3, seed=5, mesh=mesh,
+    )
     img, c_sh = render_sharded(
         padded, cam, 16, 16, spp=2, max_bounce=3, seed=5, mesh=mesh,
         scene_sharding="blocks",
@@ -157,10 +158,33 @@ def test_block_sharded_render_bitwise_equals_replicated(
     np.testing.assert_array_equal(np.asarray(ref), np.asarray(img))
 
 
+@pytest.mark.parametrize("layout", ["replicated", "blocks"])
+def test_pixel_sharded_render_equals_one_chunk_render(box_scene, cam, layout):
+    """Pixel sharding equals a single-device render of the whole frame in
+    one chunk, bit for bit, ray count included. (A padded or multi-chunk
+    render is another XLA program, whose arithmetic may differ by an ulp.)"""
+    from raytracingc_tpu.parallel.sharded import (
+        mesh_for_strategy,
+        pad_scene_for_blocks,
+        render_sharded,
+    )
+    from raytracingc_tpu.render.renderer import render
+
+    padded = pad_scene_for_blocks(box_scene, 8)
+    ref, c_ref = render(padded, cam, 16, 16, spp=2, max_bounce=3, seed=5,
+                        pixel_chunk=16 * 16)
+    img, c_sh = render_sharded(
+        padded, cam, 16, 16, spp=2, max_bounce=3, seed=5,
+        mesh=mesh_for_strategy("pixels", 8), scene_sharding=layout,
+    )
+    assert float(c_ref) == float(c_sh)
+    np.testing.assert_array_equal(np.asarray(ref), np.asarray(img))
+
+
 def test_block_sharded_pallas_backend_matches(box_scene, cam):
-    """The accel/pallas search path (interpret mode on CPU) under block
-    sharding: per-shard accel tables slice on block boundaries, so contents
-    are bit-identical to the whole-scene tables."""
+    """The Pallas search kernel (interpret mode on CPU) under block
+    sharding: each shard searches its own original-order slice, and the
+    merged winners equal the whole-scene search."""
     from raytracingc_tpu.parallel.sharded import (
         mesh_for_strategy,
         pad_scene_for_blocks,
@@ -171,10 +195,10 @@ def test_block_sharded_pallas_backend_matches(box_scene, cam):
     mesh = mesh_for_strategy("pixels", 8)
     padded = pad_scene_for_blocks(box_scene, 8)
     ref, _ = render(padded, cam, 8, 8, spp=1, max_bounce=2, seed=1,
-                    backend="pallas")
+                    backend="triton-interpret")
     img, _ = render_sharded(
         padded, cam, 8, 8, spp=1, max_bounce=2, seed=1, mesh=mesh,
-        scene_sharding="blocks", backend="pallas",
+        scene_sharding="blocks", backend="triton-interpret",
     )
     np.testing.assert_array_equal(np.asarray(ref), np.asarray(img))
 
@@ -225,22 +249,20 @@ def test_block_sharded_search_merge_exact(box_scene, cam):
     np.testing.assert_array_equal(np.asarray(ref.idx), np.asarray(got.idx))
 
 
-def test_cli_scene_sharding_blocks(tmp_path, models_dir):
+def test_cli_scene_sharding_blocks(tmp_path, box_scene_path):
     """--shard pixels --scene-sharding blocks produces the same image as the
     unsharded render (bit-matched winners; tonemapped bytes within 1)."""
-    import os
-
     from raytracingc_tpu.cli import main
     from raytracingc_tpu.render.image import read_bmp
 
-    obj = os.path.join(models_dir, "simplest.obj")
     out1 = str(tmp_path / "plain.bmp")
     out2 = str(tmp_path / "blocks.bmp")
-    assert main(["-i", obj, "-s", "8", "8", "--spp", "4", "-b", "2",
-                 "-o", out1]) == 0
-    assert main(["-i", obj, "-s", "8", "8", "--spp", "4", "-b", "2",
-                 "--shard", "pixels", "--scene-sharding", "blocks",
-                 "-o", out2]) == 0
+    scene = ["--triangles", box_scene_path]
+    assert main(scene + ["-s", "8", "8", "--spp", "4", "-b", "2",
+                         "-o", out1]) == 0
+    assert main(scene + ["-s", "8", "8", "--spp", "4", "-b", "2",
+                         "--shard", "pixels", "--scene-sharding", "blocks",
+                         "-o", out2]) == 0
     np.testing.assert_allclose(
         read_bmp(out2).astype(np.int32), read_bmp(out1).astype(np.int32),
         atol=1,
@@ -271,10 +293,10 @@ def test_pad_scene_for_blocks_non_multiple_count():
 
 
 def test_block_sharded_accel_free_pallas_matches(box_scene, cam):
-    """Review r4 (reproduced bug): blocks mode WITHOUT an accel on the
-    pallas backend built a trivial accel whose orig_idx was a LOCAL arange —
-    shards collided on duplicated ids and the image was silently wrong.
-    The globalization fix must make it match the single-device render."""
+    """Blocks mode WITHOUT an accel on the kernel backend: each shard
+    numbers its LOCAL slice, so the merge must globalize the indices
+    (duplicated local ids once collided and silently corrupted the image).
+    It must match the single-device render."""
     from raytracingc_tpu.parallel.sharded import (
         mesh_for_strategy,
         pad_scene_for_blocks,
@@ -285,24 +307,22 @@ def test_block_sharded_accel_free_pallas_matches(box_scene, cam):
     mesh = mesh_for_strategy("pixels", 8)
     padded = pad_scene_for_blocks(box_scene, 8).replace(accel=None)
     ref, _ = render(padded, cam, 8, 8, spp=1, max_bounce=2, seed=2,
-                    backend="pallas")
+                    backend="triton-interpret")
     img, _ = render_sharded(
         padded, cam, 8, 8, spp=1, max_bounce=2, seed=2, mesh=mesh,
-        scene_sharding="blocks", backend="pallas",
+        scene_sharding="blocks", backend="triton-interpret",
     )
     np.testing.assert_array_equal(np.asarray(ref), np.asarray(img))
 
 
-def test_cli_scene_sharding_requires_shard(tmp_path, models_dir):
-    """Review r4: --scene-sharding blocks without --shard must fail loudly
-    instead of silently rendering the replicated configuration."""
-    import os
-
+def test_cli_scene_sharding_requires_shard(tmp_path, box_scene_path):
+    """--scene-sharding blocks without --shard must fail loudly instead of
+    silently rendering the replicated configuration."""
     import pytest as pytest_
 
     from raytracingc_tpu.cli import main
 
-    obj = os.path.join(models_dir, "simplest.obj")
     with pytest_.raises(SystemExit, match="scene-sharding"):
-        main(["-i", obj, "-s", "8", "8", "--spp", "1", "-b", "1",
+        main(["--triangles", box_scene_path, "-s", "8", "8", "--spp", "1",
+              "-b", "1",
               "--scene-sharding", "blocks", "-o", str(tmp_path / "x.bmp")])

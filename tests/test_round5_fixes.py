@@ -1,5 +1,5 @@
-"""Round-5 regression tests: locality-sorted resolve tables (VERDICT r4
-item 3) and the eager packed search plane."""
+"""Locality-sorted resolve tables: the Morton-permuted resolve gathers the
+same bits as the original-order table."""
 
 import numpy as np
 import pytest
@@ -14,14 +14,19 @@ from raytracingc_tpu.ops.intersect import (
 )
 from raytracingc_tpu.render.integrator import trace_accumulate
 from raytracingc_tpu.render.renderer import render
-from raytracingc_tpu.scene.builder import scene_from_obj
-
-SUZANNE = "/root/reference/3Dmodels/suzannes.obj"
+from raytracingc_tpu.scene.builder import scene_from_triangles_txt, tessellate
+from raytracingc_tpu.scene.types import Scene
 
 
 @pytest.fixture(scope="module")
-def scene():
-    return scene_from_obj(SUZANNE)
+def scene(box_scene_path):
+    """The in-repo room tessellated to 640 triangles (past the one-hot
+    resolve's 256 rows, so the permuted table can attach)."""
+    base = scene_from_triangles_txt(box_scene_path)
+    tris, n = tessellate(base.triangles, base.n_triangles, levels=3)
+    return Scene.build(tris, base.spheres, base.env).replace(
+        n_triangles=n, n_spheres=base.n_spheres
+    ).with_accel()
 
 
 def test_perm_resolve_render_bitwise(scene, monkeypatch):
@@ -78,110 +83,12 @@ def test_perm_resolve_auto_threshold(scene, monkeypatch):
         with_perm_resolve(scene)
 
 
-def test_packed_plane_matches_in_trace_packing(scene):
-    """The accel's eager (12, T) plane must equal pack_triangles of the
-    permuted SoA bit for bit (the kernels' bit-identity contract rides on
-    interchangeable inputs)."""
-    from raytracingc_tpu.ops.intersect_pallas import pack_triangles
-
+def test_perm_of_orig_inverts_orig_idx(scene):
+    """The permuted resolve's slot map really inverts the accel's order:
+    orig_idx[perm_of_orig[i]] == i for live triangles."""
     accel = scene.accel
-    assert accel is not None and accel.packed_plane is not None
-    plane = pack_triangles(accel.triangles)
-    np.testing.assert_array_equal(
-        np.asarray(accel.packed_plane), np.asarray(plane)
-    )
-    # Inverse permutation really inverts: orig_idx[perm_of_orig[i]] == i
-    # for live triangles.
+    assert accel is not None and accel.perm_of_orig is not None
     n = scene.n_triangles
     oi = np.asarray(accel.orig_idx)
     po = np.asarray(accel.perm_of_orig)
     np.testing.assert_array_equal(oi[po[:n]], np.arange(n))
-
-
-def _scattered_tri_scene(t, seed=7):
-    from raytracingc_tpu.scene.builder import triangles_from_arrays
-    from raytracingc_tpu.scene.types import Scene, Spheres
-
-    rng = np.random.default_rng(seed)
-    centers = rng.uniform(-30, 30, size=(t, 3)).astype(np.float32)
-    centers[:, 2] += 40.0  # in front of the camera
-    e1 = rng.normal(size=(t, 3)).astype(np.float32) * 0.4
-    e2 = rng.normal(size=(t, 3)).astype(np.float32) * 0.4
-    verts = np.stack([centers, centers + e1, centers + e2], axis=1)
-    normals = np.cross(e1, e2)
-    normals /= np.maximum(np.linalg.norm(normals, axis=1, keepdims=True),
-                          1e-9)
-    tris, _ = triangles_from_arrays(
-        verts, normals, np.full((t, 3), 0.5, np.float32),
-        np.zeros(t, np.float32), np.zeros(t, np.float32))
-    return Scene.build(triangles=tris, spheres=Spheres.empty()).with_accel()
-
-
-def test_col_group_bitwise_identical(monkeypatch):
-    """The grouped lockstep walk (RTC_COL_GROUP) is bit-identical to the
-    single-column walk at every supported width: exhausted streams re-test
-    their previous block and tail groups re-test the last column — both
-    idempotent under the lex-(dst, orig idx) running min. Multi-word scene
-    (cross-word lockstep) with a partial alive mask (packed-column path)."""
-    from raytracingc_tpu.ops.intersect_pallas import search_triangles_pallas
-
-    scene = _scattered_tri_scene(40 * 128)
-    cam = Camera.look_at(origin=[0.0, 0.0, 0.0], target=[0.0, 0.0, 1.0])
-    o, d = primary_rays(cam, 24, 24)
-    alive = jnp.asarray(np.arange(o.shape[0]) % 5 != 3)  # ragged occupancy
-
-    outs = {}
-    for k in ("1", "2", "4", "8", "16"):
-        monkeypatch.setenv("RTC_COL_GROUP", k)
-        outs[k] = search_triangles_pallas(
-            o, d, scene.triangles, interpret=True, accel=scene.accel,
-            alive=alive, cull="bitmask")
-    base_d, base_i = (np.asarray(x) for x in outs["1"])
-    assert int((base_i >= 0).sum()) > 20  # the scene is actually hit
-    for k in ("2", "4", "8", "16"):
-        np.testing.assert_array_equal(np.asarray(outs[k][0]), base_d)
-        np.testing.assert_array_equal(np.asarray(outs[k][1]), base_i)
-
-
-def test_col_group_invalid_fails_loudly(monkeypatch):
-    from raytracingc_tpu.ops.intersect_pallas import search_triangles_pallas
-
-    scene = _scattered_tri_scene(2 * 128, seed=3)
-    cam = Camera.look_at(origin=[0.0, 0.0, 0.0], target=[0.0, 0.0, 1.0])
-    o, d = primary_rays(cam, 8, 8)
-    monkeypatch.setenv("RTC_COL_GROUP", "3")
-    with pytest.raises(AssertionError, match="RTC_COL_GROUP"):
-        search_triangles_pallas(
-            o, d, scene.triangles, interpret=True, accel=scene.accel,
-            cull="bitmask")
-
-
-def test_col_group_packed_stream_bitwise(monkeypatch):
-    """The grouped flattened-stream walk in the packed tile-major kernel is
-    bit-identical to K=1 and to the cond-words kernel, at a forced tiny
-    tile size (multi-tile streaming on CPU interpret) with ragged alive."""
-    from raytracingc_tpu.ops.intersect_pallas import search_triangles_pallas
-
-    scene = _scattered_tri_scene(24 * 128, seed=11)
-    cam = Camera.look_at(origin=[0.0, 0.0, 0.0], target=[0.0, 0.0, 1.0])
-    o, d = primary_rays(cam, 48, 48)
-    alive = jnp.asarray(np.arange(o.shape[0]) % 7 != 2)
-
-    monkeypatch.setenv("RTC_STREAM_MAX_T", "512")   # force streaming
-    monkeypatch.setenv("RTC_STREAM_TILE", "1024")   # 3 tiles of 8 blocks
-
-    monkeypatch.setenv("RTC_STREAM_CULL", "words")
-    ref = search_triangles_pallas(
-        o, d, scene.triangles, interpret=True, accel=scene.accel,
-        alive=alive)
-    base_d, base_i = (np.asarray(x) for x in ref)
-    assert int((base_i >= 0).sum()) > 20
-
-    monkeypatch.setenv("RTC_STREAM_CULL", "packed")
-    for k in ("1", "8"):
-        monkeypatch.setenv("RTC_COL_GROUP", k)
-        d_p, i_p = search_triangles_pallas(
-            o, d, scene.triangles, interpret=True, accel=scene.accel,
-            alive=alive)
-        np.testing.assert_array_equal(np.asarray(d_p), base_d)
-        np.testing.assert_array_equal(np.asarray(i_p), base_i)

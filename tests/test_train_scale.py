@@ -1,20 +1,17 @@
-"""Geometry training at accel scale (VERDICT r4 item 2).
+"""Geometry training with the accel attached.
 
-The old contract ran vertex-trainable losses accel-free (always-hit trivial
-accel → O(R·T), fine at 4k triangles, a cliff at 61k+). The new contract:
-``refresh_accel`` regenerates the accel's VALUES (permuted SoA, block AABBs,
-packed search plane) in-trace from the current triangles on the host-built
-static Morton permutation — exact for the current geometry at every step —
-and both train-step paths (``fit_scene`` single-device,
-``make_train_step`` sharded) run the loss against it.
+``refresh_accel`` regenerates the accel's VALUES (permuted SoA, block AABBs)
+in-trace from the current triangles on the host-built static Morton
+permutation — exact for the current geometry at every step — and both
+train-step paths (``fit_scene`` single-device, ``make_train_step`` sharded)
+run the loss against it.
 
 Pinned here:
 
 * ``refresh_accel`` == ``build_accel`` **bitwise** on the same geometry and
   permutation (incl. a padded, non-128-multiple scene).
-* After vertices MOVE, the Pallas search driven by the refreshed accel is
-  bit-identical to the brute-force XLA scan of the moved triangles — the
-  accel==brute invariant, now holding under training updates.
+* After vertices MOVE, the refreshed block AABBs bound the moved triangles
+  (and the stale ones do not).
 * Gradients through a refreshed-accel loss equal the accel-free oracle.
 * Vertex training on a 61,440-triangle scene runs with the accel attached,
   decreasing loss, stable pytree structure across steps, and a
@@ -30,8 +27,6 @@ import pytest
 from raytracingc_tpu.camera import Camera, primary_rays
 from raytracingc_tpu.diff.optimize import fit_scene
 from raytracingc_tpu.ops.accel import build_accel, refresh_accel
-from raytracingc_tpu.ops.intersect import _search_triangles_xla
-from raytracingc_tpu.ops.intersect_pallas import search_triangles_pallas
 from raytracingc_tpu.scene.builder import triangles_from_arrays
 from raytracingc_tpu.scene.types import Scene, Spheres
 
@@ -72,28 +67,31 @@ def test_refresh_matches_build_bitwise(n):
     _assert_tris_equal(ref.triangles, acc.triangles)
     np.testing.assert_array_equal(np.asarray(ref.aabb_lo), np.asarray(acc.aabb_lo))
     np.testing.assert_array_equal(np.asarray(ref.aabb_hi), np.asarray(acc.aabb_hi))
-    np.testing.assert_array_equal(
-        np.asarray(ref.packed_plane), np.asarray(acc.packed_plane)
-    )
     np.testing.assert_array_equal(np.asarray(ref.orig_idx), np.asarray(acc.orig_idx))
-    assert ref.mxu_coeffs is None
+
+
+def _block_bounds_hold(accel, tris, n_live, block=128):
+    """Does every live triangle lie inside its block's AABB?"""
+    src = np.minimum(np.asarray(accel.orig_idx), tris.count - 1)[:n_live]
+    verts = np.stack([np.asarray(getattr(tris, v))[src] for v in "abc"], 1)
+    blk = np.arange(n_live) // block
+    lo = np.asarray(accel.aabb_lo)[blk][:, None]
+    hi = np.asarray(accel.aabb_hi)[blk][:, None]
+    return bool(((verts >= lo) & (verts <= hi)).all())
 
 
 def test_refreshed_accel_search_exact_after_moves():
-    """Move vertices, refresh on the OLD permutation → Pallas search ==
-    brute-force search of the moved geometry, bitwise within the kernel
-    (the accel==brute invariant, test_accel.py's methodology) and
-    index-exact vs the XLA backend."""
-    from raytracingc_tpu.ops.accel import trivial_accel
-
+    """Move vertices, refresh on the OLD permutation → the refreshed block
+    AABBs bound every moved triangle exactly (block = the triangle's Morton
+    slot), and its permuted SoA is the moved geometry; the frozen accel's
+    AABBs do not bound them — the refresh is load-bearing."""
     tris, n_live = _soup(1000, seed=3)  # pads to 1024 = 8 blocks
     acc = build_accel(tris, n_live)
+    assert _block_bounds_hold(acc, tris, n_live)
 
     rng = np.random.default_rng(7)
     # Random per-triangle jitter PLUS a +10x translation of everything: the
-    # moved soup lies entirely outside the old block AABBs, the case a
-    # frozen accel gets WRONG (stale bounds cull every block the moved
-    # triangles now occupy).
+    # moved soup lies entirely outside the old block AABBs.
     delta = (
         rng.uniform(-1.0, 1.0, (tris.count, 3)).astype(np.float32)
         + np.array([10.0, 0.0, 0.0], np.float32)
@@ -101,37 +99,21 @@ def test_refreshed_accel_search_exact_after_moves():
     moved = tris.replace(
         a=tris.a + delta, b=tris.b + delta, c=tris.c + delta
     )
-    ref = refresh_accel(acc, moved, n_live)
+    ref = jax.jit(refresh_accel, static_argnums=2)(acc, moved, n_live)
 
-    o, d = _rays(512, seed=11)
-    o = o + jnp.array([10.0, 0.0, 0.0], jnp.float32)  # aim at the moved soup
-    d_pal, i_pal = search_triangles_pallas(
-        o, d, moved, interpret=True, accel=ref, n_live=n_live,
-        variant="packet",
+    assert _block_bounds_hold(ref, moved, n_live)
+    src = np.minimum(np.asarray(acc.orig_idx), tris.count - 1)
+    np.testing.assert_array_equal(
+        np.asarray(ref.triangles.a), np.asarray(moved.a)[src]
     )
-    d_brute, i_brute = search_triangles_pallas(
-        o, d, moved, interpret=True, accel=trivial_accel(moved),
-        n_live=n_live, variant="packet",
+    # The refreshed AABBs are TIGHT: block 0's equals its vertices' min/max.
+    blk0 = np.concatenate(
+        [np.asarray(getattr(ref.triangles, v))[:128] for v in "abc"]
     )
-    np.testing.assert_array_equal(np.asarray(d_pal), np.asarray(d_brute))
-    np.testing.assert_array_equal(np.asarray(i_pal), np.asarray(i_brute))
-    # Winner indices also agree with the XLA scan (dst only to ~1 ulp across
-    # backends — different programs, different fusion).
-    _, i_xla = _search_triangles_xla(o, d, moved)
-    np.testing.assert_array_equal(np.asarray(i_pal), np.asarray(i_xla))
-
-    # Control: the FROZEN accel (old AABBs) on the moved geometry would not
-    # be exact — proves the refresh is load-bearing, not vacuous.
-    stale = acc.replace(
-        triangles=ref.triangles, packed_plane=ref.packed_plane
-    )  # current values, STALE bounds
-    d_stale, _ = search_triangles_pallas(
-        o, d, moved, interpret=True, accel=stale, n_live=n_live,
-        variant="packet",
-    )
-    assert (np.asarray(d_stale) != np.asarray(d_brute)).any(), (
-        "stale AABBs accidentally exact — enlarge the displacement"
-    )
+    np.testing.assert_array_equal(np.asarray(ref.aabb_lo)[0], blk0.min(0))
+    np.testing.assert_array_equal(np.asarray(ref.aabb_hi)[0], blk0.max(0))
+    # Control: the FROZEN accel's bounds no longer bound the moved soup.
+    assert not _block_bounds_hold(acc, moved, n_live)
 
 
 def test_refreshed_accel_gradients_match_accel_free():
@@ -285,7 +267,7 @@ def test_sharded_geometry_step_matches_accel_free(eight_devices=None):
     st = opt.init(sa.replace(accel=None))
     s1, st1, l0 = step(sa, st, o, d, ids, tgt)
     s2, _, l1 = step(s1, st1, o, d, ids, tgt)
-    assert s2.accel is not None and s2.accel.packed_plane is not None
+    assert s2.accel is not None
     want = refresh_accel(s2.accel, s2.triangles, s2.n_triangles)
     _assert_tris_equal(want.triangles, s2.accel.triangles)
     np.testing.assert_array_equal(

@@ -125,14 +125,14 @@ def test_render_resilient_retries_and_resumes():
                          backoff_s=0.0)
 
 
-def test_cli_checkpoint_flag(tmp_path):
+def test_cli_checkpoint_flag(tmp_path, box_scene_path):
     import os
 
     from raytracingc_tpu.cli import main
 
     out = str(tmp_path / "o.bmp")
     ck = str(tmp_path / "ck.npz")
-    rc = main(["-i", "/root/reference/3Dmodels/simplest.obj", "-s", "8", "8",
+    rc = main(["--triangles", box_scene_path, "-s", "8", "8",
                "--spp", "4", "-b", "2", "--batch-spp", "2",
                "--checkpoint", ck, "-o", out])
     assert rc == 0 and os.path.exists(ck) and os.path.exists(out)

@@ -1,6 +1,6 @@
-"""Multi-chip collective cost model (VERDICT r4 item 5).
+"""Multi-device collective cost model: payload bytes from compiled HLO.
 
-Turns the 16-chip / 1e9-rays/s extrapolation into payload-bytes arithmetic:
+Turns a multi-device throughput extrapolation into payload-bytes arithmetic:
 
 1. **Collective inventory from compiled HLO.** Lowers the sharded render on
    an 8-virtual-device CPU mesh for each scene layout and extracts every
@@ -10,7 +10,8 @@ Turns the 16-chip / 1e9-rays/s extrapolation into payload-bytes arithmetic:
    per-ray-per-bounce payload can be read off directly.
 2. **CPU strong-scaling table.** Times the same global workload at
    px = 1/2/4/8 virtual devices. CPU emulation shares the same cores and
-   understates ICI (collectives are memcpys here), so the EFFICIENCY column
+   understates the interconnect (collectives are memcpys here), so the
+   EFFICIENCY column
    is a lower-is-suspicious sanity signal, not a throughput prediction —
    the payload table above is the transferable artifact.
 
@@ -18,7 +19,7 @@ Run:  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
           python tools/multichip_cost.py
 (or just `python tools/multichip_cost.py`; it forces CPU itself).
 
-Results are recorded in BASELINE.md "multi-chip collective cost model".
+Results are written to ``multichip_cost.json`` at the repository root.
 """
 
 import json
